@@ -1,0 +1,28 @@
+"""Hand-written Hopper kernels of the receiver's main path.
+
+Each kernel has a CUDA C++ source in ``csrc/`` with a plain C launcher,
+compiled by ``nvcc`` for ``sm_90a`` at first use into ``build/kernels/``
+at the repository root (git-ignored) and loaded with ``ctypes``. Every
+wrapper takes the plain PyTorch version for a tensor on the CPU and
+launches its kernel for a tensor on the card; nothing falls back.
+
+``LAUNCHES`` counts kernel launches per kernel name: a wrapper adds one
+where it launches its kernel and nowhere else, so a run can show which
+kernels the main path went through.
+"""
+
+from __future__ import annotations
+
+LAUNCHES: dict[str, int] = {
+    "multicorr": 0,     # K3: scan-engine per-period correlator
+    "bank_corr": 0,     # K1: fast-engine code-bank group correlator
+    "acq_wipeoff": 0,   # K2 (a): Doppler wipe-off into the FFT input
+    "acq_product": 0,   # K2 (b): spectrum x conj(code spectrum)
+    "acq_accum": 0,     # K2 (c1): |IFFT|^2 dwell accumulate + row peaks
+    "acq_stats": 0,     # K2 (c2): per-PRN argmax, CFAR / second peak
+}
+
+
+def reset_launches() -> None:
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0

@@ -1,0 +1,147 @@
+"""Build and load the CUDA sources of ``csrc/`` with ``nvcc`` + ``ctypes``.
+
+Each ``csrc/<name>.cu`` becomes ``build/kernels/<name>-<hash>.so`` at the
+repository root, keyed by the source's content hash, so an edited source
+is rebuilt and an unchanged one is reused. :func:`build_all` starts one
+``nvcc`` per source, all at once. A failed build raises with the
+compiler's output. No PyTorch headers are included, which keeps a build
+to seconds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+BUILD_DIR = os.path.join(REPO_ROOT, "build", "kernels")
+SOURCES = ("multicorr", "bank_corr", "acq")
+NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    home = os.environ.get("CUDA_HOME")
+    if not home:
+        from torch.utils.cpp_extension import CUDA_HOME
+
+        home = CUDA_HOME
+    cand = os.path.join(home, "bin", "nvcc") if home else None
+    if cand and os.path.exists(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (set CUDA_HOME)")
+    return found
+
+
+def _target(name: str) -> tuple[str, str]:
+    src = os.path.join(CSRC, f"{name}.cu")
+    h = hashlib.sha1()
+    for path in (src, os.path.join(CSRC, "common.cuh")):
+        with open(path, "rb") as fh:
+            h.update(fh.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return src, os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:12]}.so")
+
+
+def _start(name: str):
+    src, so = _target(name)
+    if os.path.exists(so):
+        return None
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, src]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, so
+
+
+def _finish(name: str, job) -> None:
+    if job is None:
+        return
+    proc, tmp, so = job
+    out, _ = proc.communicate()
+    with open(so + ".log", "w") as fh:
+        fh.write(out)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
+    os.replace(tmp, so)
+
+
+def build_all(names=SOURCES) -> dict[str, str]:
+    """Compile every listed source that has no current build, one
+    ``nvcc`` process per source, all started together. Returns
+    ``{name: compiler log}`` of the builds that ran."""
+    jobs = {name: _start(name) for name in names}
+    logs = {}
+    for name, job in jobs.items():
+        _finish(name, job)
+        if job is not None:
+            with open(job[2] + ".log") as fh:
+                logs[name] = fh.read()
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded shared library of ``csrc/<name>.cu``, built if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            _finish(name, _start(name))
+            lib = ctypes.CDLL(_target(name)[1])
+            _libs[name] = lib
+        return lib
+
+
+_fns: dict[tuple[str, str], object] = {}
+
+
+def function(lib: str, name: str, argtypes):
+    """``csrc/<lib>.cu``'s launcher ``name`` with its ctypes signature
+    set (returns a ``cudaError_t`` as int); cached after the first call."""
+    f = _fns.get((lib, name))
+    if f is None:
+        f = getattr(load(lib), name)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+        _fns[(lib, name)] = f
+    return f
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a non-zero ``cudaError_t`` returned by a launcher."""
+    if err != 0:
+        raise RuntimeError(f"CUDA launch of {what} failed: cudaError {err}")
+
+
+def check_planes(src_re, src_im, what):
+    """Raise unless the sample source is two contiguous 1-D planes of one
+    dtype on one device."""
+    if src_re.dim() != 1 or src_re.shape != src_im.shape \
+            or src_re.dtype != src_im.dtype or src_re.device != src_im.device \
+            or not (src_re.is_contiguous() and src_im.is_contiguous()):
+        raise ValueError(f"{what}: two contiguous 1-D planes of one dtype "
+                         "and device expected")
+
+
+def stream_ptr() -> int:
+    import torch
+
+    return torch.cuda.current_stream().cuda_stream
+
+
+VP = ctypes.c_void_p
+I32 = ctypes.c_int
+I64 = ctypes.c_longlong
+F32 = ctypes.c_float

@@ -1,0 +1,122 @@
+// K1: the fast engine's code-bank group correlator.
+//
+// Replaces the bank branch of gnss_sdr_tpu/tracking/fast_engine.py
+// ::FastTrackingEngine._build.group_body (window slices, carrier
+// wipe-off, contraction with the [C, P+1, T, W] code bank and the linear
+// interpolation between the two phase rows around the remnant code
+// phase). The loop closure stays in PyTorch.
+//
+// For each channel c, period k and tap t of one 20-period group:
+//   a_j = sum_{n < n_eff} bank[c, j, t, n] * x[n] e^{-j(ph0[c,k] + step[c] n)}
+//   corr = (1 - w[c,k]) * a_{j0[c,k]} + w[c,k] * a_{j0[c,k]+1}
+// over the window of the int8 ring at base + win_start[c, k].
+//
+// Bound: per group it must read C*K windows of int8 samples (2 bytes a
+// sample) and 2 of the 17 bank rows per period (2*T*n_eff floats); at
+// C=8, K=20 that is ~2.6 MB, ~0.8 us at 3.35 TB/s, against ~10 MFLOP.
+// It is bound by bytes. Design: one block per (channel, period), the ring
+// widened in the load, only rows j0 and j0+1 fetched (the TPU form
+// contracted all 17), one sincosf per sample shared by all taps, and the
+// zero tail of the bank (columns >= n_eff) never read.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+
+template <typename T, int NT>
+__global__ void __launch_bounds__(kThreads)
+bank_corr_kernel(const T* __restrict__ src_re, const T* __restrict__ src_im,
+                 long long base, const int* __restrict__ win_start,
+                 const float* __restrict__ ph0,
+                 const float* __restrict__ step,
+                 const float* __restrict__ bank,
+                 const int* __restrict__ j0, const float* __restrict__ w,
+                 int K, int P1, int W, int n_eff,
+                 float* __restrict__ out_re, float* __restrict__ out_im) {
+  __shared__ float scratch[4 * NT * 32];
+  const int ck = blockIdx.x;
+  const int c = ck / K;
+  const long long s0 = base + win_start[ck];
+  const float p0 = ph0[ck], st = step[c];
+  const float* b0 = bank + ((size_t)c * P1 + j0[ck]) * NT * (size_t)W;
+  const float* b1 = b0 + (size_t)NT * W;
+  // acc: [0,NT) a0 re, [NT,2NT) a0 im, [2NT,3NT) a1 re, [3NT,4NT) a1 im
+  float acc[4 * NT];
+#pragma unroll
+  for (int i = 0; i < 4 * NT; ++i) acc[i] = 0.0f;
+
+  for (int n = threadIdx.x; n < n_eff; n += blockDim.x) {
+    float rr, ri;
+    derotate(to_f32(src_re[s0 + n]), to_f32(src_im[s0 + n]),
+             __fadd_rn(p0, __fmul_rn(st, static_cast<float>(n))), rr, ri);
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      const float q0 = __ldg(b0 + (size_t)t * W + n);
+      const float q1 = __ldg(b1 + (size_t)t * W + n);
+      acc[t] += q0 * rr;
+      acc[NT + t] += q0 * ri;
+      acc[2 * NT + t] += q1 * rr;
+      acc[3 * NT + t] += q1 * ri;
+    }
+  }
+  block_sum<4 * NT>(acc, scratch);
+  if (threadIdx.x == 0) {
+    const float wt = w[ck];
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      out_re[ck * NT + t] = (1.0f - wt) * acc[t] + wt * acc[2 * NT + t];
+      out_im[ck * NT + t] = (1.0f - wt) * acc[NT + t] + wt * acc[3 * NT + t];
+    }
+  }
+}
+
+template <typename T>
+int launch(const T* re, const T* im, long long base, const int* win_start,
+           const float* ph0, const float* step, const float* bank,
+           const int* j0, const float* w, int C, int K, int P1, int n_taps,
+           int W, int n_eff, float* out_re, float* out_im,
+           cudaStream_t stream) {
+  const dim3 grid(C * K), block(kThreads);
+#define K1_CASE(NT)                                                        \
+  case NT:                                                                 \
+    bank_corr_kernel<T, NT><<<grid, block, 0, stream>>>(                   \
+        re, im, base, win_start, ph0, step, bank, j0, w, K, P1, W, n_eff,  \
+        out_re, out_im);                                                   \
+    break;
+  switch (n_taps) {
+    K1_CASE(1)
+    K1_CASE(3)
+    K1_CASE(5)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef K1_CASE
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+int bank_corr_i8(const int8_t* re, const int8_t* im, long long base,
+                 const int* win_start, const float* ph0, const float* step,
+                 const float* bank, const int* j0, const float* w, int C,
+                 int K, int P1, int n_taps, int W, int n_eff, float* out_re,
+                 float* out_im, void* stream) {
+  return launch<int8_t>(re, im, base, win_start, ph0, step, bank, j0, w, C,
+                        K, P1, n_taps, W, n_eff, out_re, out_im,
+                        static_cast<cudaStream_t>(stream));
+}
+
+int bank_corr_f32(const float* re, const float* im, long long base,
+                  const int* win_start, const float* ph0, const float* step,
+                  const float* bank, const int* j0, const float* w, int C,
+                  int K, int P1, int n_taps, int W, int n_eff, float* out_re,
+                  float* out_im, void* stream) {
+  return launch<float>(re, im, base, win_start, ph0, step, bank, j0, w, C,
+                       K, P1, n_taps, W, n_eff, out_re, out_im,
+                       static_cast<cudaStream_t>(stream));
+}
+
+}  // extern "C"

@@ -1,0 +1,1 @@
+"""Counterpart of ``gnss_sdr_tpu/receiver``."""

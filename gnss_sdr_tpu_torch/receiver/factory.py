@@ -1,0 +1,184 @@
+"""Configuration-driven receiver assembly, GPS L1 C/A part.
+
+Port of the single-``Channels_1C`` part of
+``gnss_sdr_tpu/receiver/factory.py`` (gnss-sdr's GNSSBlockFactory +
+flowgraph wiring, gnss_block_factory.cc:637-1330): a reference-style INI
+names implementations per role and the factory builds the production
+(fast-engine) receiver, or the scan receiver with
+``GNSS-SDR.engine=scan``. Unknown names raise with the supported list.
+Every branch the port does not have yet raises ``NotImplementedError``
+naming its ROADMAP item.
+"""
+
+from __future__ import annotations
+
+from gnss_sdr_tpu_torch.config import Configuration
+from gnss_sdr_tpu_torch.receiver.receiver import Receiver, ReceiverConfig
+from gnss_sdr_tpu_torch.sources.file_source import FileSignalSource
+
+SUPPORTED_SOURCES = {"File_Signal_Source"}
+#: sources of the JAX package that the port does not have yet
+LIVE_SOURCES = {"File_Timestamp_Signal_Source", "Fifo_Signal_Source",
+                "Custom_UDP_Signal_Source", "Labsat_Signal_Source"}
+SUPPORTED_ACQ = {"GPS_L1_CA_PCPS_Acquisition",
+                 "GPS_L1_CA_PCPS_Assisted_Acquisition",
+                 "GPS_L1_CA_PCPS_Acquisition_Fine_Doppler"}
+SUPPORTED_ENGINES = {"production", "scan"}
+SUPPORTED_TRK = {"GPS_L1_CA_DLL_PLL_Tracking"}
+SUPPORTED_TLM = {"GPS_L1_CA_Telemetry_Decoder"}
+SUPPORTED_OBS = {"Hybrid_Observables"}
+SUPPORTED_PVT = {"RTKLIB_PVT"}
+#: channel-group suffixes of the JAX package's band registry
+BAND_SUFFIXES = ("1C", "2S", "L5", "1B", "5X", "7X", "E6", "1G", "2G", "B1",
+                 "B3", "S1")
+
+
+def _check(name: str, value: str, supported: set[str]) -> None:
+    if value and value not in supported:
+        raise ValueError(
+            f"{name}.implementation={value!r} is not available; "
+            f"supported: {sorted(supported)}")
+
+
+def _todo(what: str, item: str):
+    return NotImplementedError(
+        f"{what} is not ported to gnss_sdr_tpu_torch yet (ROADMAP queue 1, "
+        f"{item})")
+
+
+def make_signal_conditioner(config: Configuration):
+    """``None`` for a source that runs straight into the receiver; the
+    conditioner chain itself is not ported yet."""
+    impl = config.property("SignalConditioner.implementation", "")
+    if not impl or impl == "Pass_Through":
+        return None
+    raise _todo(f"SignalConditioner.implementation={impl!r}",
+                "step 11, the conditioner chain")
+
+
+def make_signal_source(config: Configuration):
+    impl = config.property("SignalSource.implementation", "")
+    if not impl:
+        return None
+    if impl in LIVE_SOURCES:
+        raise _todo(f"SignalSource.implementation={impl!r}",
+                    "step 12, control and live sources")
+    _check("SignalSource", impl, SUPPORTED_SOURCES)
+    fs = float(config.property(
+        "GNSS-SDR.internal_fs_sps",
+        config.property("SignalSource.sampling_frequency", 4_000_000)))
+    return FileSignalSource(
+        config.property("SignalSource.filename", ""),
+        sampling_frequency=fs,
+        item_type=config.property("SignalSource.item_type", "gr_complex"),
+        samples=config.property("SignalSource.samples", 0),
+        repeat=config.property("SignalSource.repeat", False),
+    )
+
+
+def _configured_suffixes(config: Configuration) -> list[str]:
+    """Signal suffixes with ``Channels_XX.count > 0``."""
+    return [sx for sx in BAND_SUFFIXES
+            if int(config.property(f"Channels_{sx}.count", 0)) > 0]
+
+
+def make_receiver(config: Configuration, satellites=None,
+                  engine: str | None = None, device="cuda"):
+    """Build a receiver from reference-style configuration keys.
+
+    A single ``Channels_1C`` group (or none) builds the GPS L1 receiver:
+    the production (fast-engine) receiver by default, the scan receiver
+    with ``GNSS-SDR.engine=scan`` or ``engine="scan"``."""
+    if engine is None:
+        engine = config.property("GNSS-SDR.engine", "production")
+    _check("GNSS-SDR.engine", engine, SUPPORTED_ENGINES)
+    suffixes = _configured_suffixes(config)
+    if suffixes and suffixes != ["1C"]:
+        raise _todo(f"channel groups {suffixes}",
+                    "step 8, the multi-band path")
+    if config.property("PVT.positioning_mode", "Single") != "Single":
+        raise _todo("PVT.positioning_mode other than Single",
+                    "step 8, the multi-band PVT block (PPP/RTK)")
+    if config.property("PVT.rinex_output_enabled", False):
+        raise _todo("RINEX output", "step 8, the multi-band PVT block")
+    if any(config.property(k, False) for k in (
+            "Monitor.enable_monitor", "TrackingMonitor.enable_monitor",
+            "AcquisitionMonitor.enable_monitor",
+            "NavDataMonitor.enable_monitor", "PVT.enable_monitor",
+            "PVT.enable_monitor_ephemeris")):
+        raise _todo("UDP monitors", "step 8, the multi-band PVT block")
+    return _make_l1_receiver(config, satellites, engine, device)
+
+
+def _load_agnss(config: Configuration):
+    """Assisted GPS ephemerides from the AGNSS XML surface."""
+    path = config.property("GNSS-SDR.AGNSS_gps_ephemeris_xml", "")
+    if not path:
+        return None
+    from gnss_sdr_tpu_torch.receiver.assistance import load_ephemeris_xml
+
+    return load_ephemeris_xml(path)
+
+
+def _make_l1_receiver(config: Configuration, satellites=None,
+                      engine: str = "production", device="cuda"):
+    """Build a GPS L1 C/A receiver from reference-style configuration keys."""
+    _check("Acquisition_1C",
+           config.property("Acquisition_1C.implementation", ""),
+           SUPPORTED_ACQ)
+    _check("Tracking_1C",
+           config.property("Tracking_1C.implementation", ""), SUPPORTED_TRK)
+    _check("TelemetryDecoder_1C",
+           config.property("TelemetryDecoder_1C.implementation", ""),
+           SUPPORTED_TLM)
+    _check("Observables",
+           config.property("Observables.implementation", ""), SUPPORTED_OBS)
+    _check("PVT", config.property("PVT.implementation", ""), SUPPORTED_PVT)
+
+    fs = float(config.property("GNSS-SDR.internal_fs_sps", 4_000_000))
+    # extended coherent integration after bit sync: the production engine
+    # closes its loops once per K-symbol group; K=1 keeps the scan engine
+    ext_k = int(config.property(
+        "Tracking_1C.extend_correlation_symbols",
+        20 if engine == "production" else 1))
+    if ext_k <= 1:
+        engine = "scan"
+    cfg = ReceiverConfig(
+        fs=fs,
+        n_channels=config.property("Channels_1C.count", 8),
+        extend_correlation_symbols=ext_k,
+        pll_bw_narrow_hz=config.property("Tracking_1C.pll_bw_narrow_hz", 5.0),
+        dll_bw_narrow_hz=config.property(
+            "Tracking_1C.dll_bw_narrow_hz", 0.75),
+        doppler_max=float(config.property("Acquisition_1C.doppler_max", 5000)),
+        doppler_step=float(config.property("Acquisition_1C.doppler_step", 250)),
+        acq_pfa=config.property("Acquisition_1C.pfa", 0.001),
+        acq_dwells=config.property("Acquisition_1C.max_dwells", 2),
+        pll_bw_hz=config.property("Tracking_1C.pll_bw_hz", 35.0),
+        dll_bw_hz=config.property("Tracking_1C.dll_bw_hz", 2.0),
+        enable_fll_pull_in=config.property(
+            "Tracking_1C.enable_fll_pull_in", True),
+        fll_bw_hz=config.property("Tracking_1C.fll_bw_hz", 35.0),
+        pull_in_time_s=float(config.property(
+            "Tracking_1C.pull_in_time_s", 0.5)),
+        early_late_space_chips=config.property(
+            "Tracking_1C.early_late_space_chips", 0.5),
+        interval_ms=config.property("GNSS-SDR.observable_interval_ms", 20),
+        output_rate_ms=config.property("PVT.output_rate_ms", 100),
+        enable_carrier_smoothing=config.property(
+            "Observables.enable_carrier_smoothing", False),
+        smoothing_factor=config.property(
+            "Observables.smoothing_factor", 200),
+    )
+    if satellites is None:
+        sats_text = config.property("Channels_1C.satellites", "")
+        satellites = ([int(s) for s in sats_text.replace(";", ",").split(",")]
+                      if sats_text else list(range(1, 33)))
+    agnss = _load_agnss(config)
+    if engine == "production":
+        from gnss_sdr_tpu_torch.receiver.production import ProductionReceiver
+
+        return ProductionReceiver(cfg, satellites=satellites,
+                                  assisted_ephemeris=agnss, device=device)
+    return Receiver(cfg, satellites=satellites, assisted_ephemeris=agnss,
+                    device=device)

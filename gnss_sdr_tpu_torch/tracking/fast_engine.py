@@ -1,0 +1,455 @@
+"""Fast steady-state tracking engine: group-batched correlation.
+
+Port of ``gnss_sdr_tpu/tracking/fast_engine.py`` with the code-bank
+correlator, the FLL/PLL loop and no secondary-code wipe-off
+(``correlator="bank"``, ``loop="fllpll"``, ``sec_max_len=1``): the
+production steady state of GPS L1 C/A. In extended coherent integration
+the loops close once per K-period group, so the NCO is constant inside a
+group and all K periods of all channels correlate in one launch of the
+K1 kernel (``kernels/bank_corr.py``) at closed-form period boundaries
+
+    boundary_k = offset + rem0 + k * T_prn   (int + small-fraction form)
+
+after which :meth:`FastTrackingEngine._close_loops` runs the same loop
+arithmetic as the scan engine's extended mode in PyTorch.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from gnss_sdr_tpu_torch.device import resolve_device
+from gnss_sdr_tpu_torch.kernels.bank_corr import bank_corr
+from gnss_sdr_tpu_torch.ops import discriminators as disc
+from gnss_sdr_tpu_torch.ops import lock_detectors as lockdet
+from gnss_sdr_tpu_torch.ops import loop_filters as lf
+from gnss_sdr_tpu_torch.tracking.engine import (TWO_PI, TWO_PI_F32, F32,
+                                                TrackingConfig, TrackState,
+                                                f32, select)
+
+
+class FastState(NamedTuple):
+    """Per-channel carry of the group engine ([C] leading dim).
+
+    The fields of ``gnss_sdr_tpu.tracking.fast_engine.FastState`` except
+    the KF / Gaussian loop carries (``kf_x``, ``kf_p``, ``gs_niw``), which
+    belong to loop variants not ported yet."""
+
+    active: torch.Tensor
+    offset: torch.Tensor              # int32 block-relative next group start
+    rem_code_phase_samples: torch.Tensor
+    rem_carr_phase_rad: torch.Tensor
+    carrier_doppler_hz: torch.Tensor
+    if_freq_hz: torch.Tensor
+    code_doppler_chips: torch.Tensor  # code freq minus nominal chip rate
+    carr_w: torch.Tensor
+    carr_x: torch.Tensor
+    code_x_hist: torch.Tensor
+    code_y_hist: torch.Tensor
+    p_old_re: torch.Tensor
+    p_old_im: torch.Tensor
+    prompt_buf_re: torch.Tensor
+    prompt_buf_im: torch.Tensor
+    prompt_count: torch.Tensor
+    cn0_db_hz: torch.Tensor
+    carrier_lock_test: torch.Tensor
+    code_lock_fail: torch.Tensor
+    carrier_lock_fail: torch.Tensor
+    loss_of_lock: torch.Tensor
+    sec_signs: torch.Tensor           # f32 [C, 1]
+    sec_len: torch.Tensor             # int32 [C]
+    sec_phase: torch.Tensor           # int32 [C]
+    secondary_locked: torch.Tensor    # bool [C]: four-quadrant PLL
+
+
+class FastTrackingEngine:
+    """K-period group tracking over blocks of G groups.
+
+    ``block_samples`` covers G groups (G*K*T_prn); blocks overlap by
+    ``overlap`` samples like the scan engine's."""
+
+    #: sub-sample phases in the code bank
+    BANK_PHASES = 16
+
+    def __init__(self, cfg: TrackingConfig, n_channels: int,
+                 groups_per_block: int = 5, correlator: str = "bank",
+                 loop: str = "fllpll", sec_max_len: int = 1, device="cuda"):
+        if cfg.extend_correlation_symbols < 1:
+            raise ValueError("extend_correlation_symbols must be >= 1")
+        if correlator != "bank":
+            raise NotImplementedError(
+                "only the bank correlator is ported; the segsum correlator "
+                "(K1-seg) is queued in ROADMAP")
+        if loop != "fllpll":
+            raise NotImplementedError(
+                f"loop={loop!r} (K6) is queued in ROADMAP; only 'fllpll' "
+                "is ported")
+        if sec_max_len != 1 or cfg.track_pilot:
+            raise NotImplementedError(
+                "secondary-code wipe-off and the data bank belong to the "
+                "multi-band path, queued in ROADMAP")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.n_channels = n_channels
+        self.correlator = correlator
+        self.loop = loop
+        self.k = cfg.extend_correlation_symbols
+        self.g = groups_per_block
+        spc = cfg.samples_per_code
+        self.max_period = spc + 16
+        self.block_samples = self.g * self.k * spc
+        # per-period correlation window, as the JAX package sizes it
+        self.win_len = int(math.ceil((self.max_period + 127) / 128)) * 128
+        self.overlap = self.k * spc + self.win_len + 32
+        self.n_taps = cfg.n_taps
+        self.sec_max_len = 1
+        t_nom_f64 = cfg.code_length_chips * cfg.fs / cfg.chip_rate_cps
+        #: the bank's support: row 0 holds round(t_nom) samples and rows
+        #: with a sub-sample start phase one more; the columns past it
+        #: are zero, so K1 never reads them
+        self.n_eff = min(self.win_len, int(round(t_nom_f64)) + 1)
+        self._bank_cache = None
+        taps = cfg.tap_shifts()
+        self._shifts = np.asarray(taps, dtype=np.float64)
+        self._gains = lf.FllPllGains.make(
+            cfg.fll_bw_hz, cfg.pll_bw_narrow_hz, cfg.pll_filter_order)
+        ic, oc = lf.loop_filter_coefficients(
+            cfg.code_period_s * self.k, cfg.dll_bw_narrow_hz,
+            cfg.dll_filter_order, include_last_integrator=False)
+        self._dll_ic = torch.as_tensor(ic, device=self.device)
+        self._dll_oc = torch.as_tensor(oc, device=self.device)
+        self._fs = f32(cfg.fs)
+        self._chip_rate = f32(cfg.chip_rate_cps)
+        self._t_group = f32(cfg.code_period_s * self.k)
+        self._t_int = int(math.floor(t_nom_f64))
+        self._t_frac_nom = f32(t_nom_f64 - math.floor(t_nom_f64))
+        self._t_nom_over_f0 = f32(t_nom_f64 / cfg.chip_rate_cps)
+        self._half_t_over_f0 = f32(0.5 * t_nom_f64 / cfg.chip_rate_cps)
+        self._aiding = f32(F32(cfg.chip_rate_cps) / F32(cfg.carrier_hz))
+        self._k_f32 = f32(self.k)
+        self._k_t_int_f32 = f32(self.k * self._t_int)
+        self._cn0_a = f32(cfg.cn0_smoother_alpha)
+        self._cn0_1ma = f32(F32(1.0) - F32(cfg.cn0_smoother_alpha))
+        self._lock_a = f32(cfg.carrier_lock_test_smoother_alpha)
+        self._lock_1ma = f32(F32(1.0)
+                             - F32(cfg.carrier_lock_test_smoother_alpha))
+
+    # -- state ------------------------------------------------------------
+    def init_state(self) -> FastState:
+        c, dev, cfg = self.n_channels, self.device, self.cfg
+
+        def z(*shape, dtype=torch.float32):
+            return torch.zeros((c,) + shape, dtype=dtype, device=dev)
+
+        i32 = torch.int32
+        return FastState(
+            active=z(dtype=torch.bool), offset=z(dtype=i32),
+            rem_code_phase_samples=z(), rem_carr_phase_rad=z(),
+            carrier_doppler_hz=z(), if_freq_hz=z(), code_doppler_chips=z(),
+            carr_w=z(), carr_x=z(),
+            code_x_hist=z(lf.HISTORY), code_y_hist=z(lf.HISTORY - 1),
+            p_old_re=z(), p_old_im=z(),
+            prompt_buf_re=z(cfg.cn0_samples), prompt_buf_im=z(cfg.cn0_samples),
+            prompt_count=z(dtype=i32), cn0_db_hz=z(), carrier_lock_test=z(),
+            code_lock_fail=z(dtype=i32), carrier_lock_fail=z(dtype=i32),
+            loss_of_lock=z(dtype=torch.bool),
+            sec_signs=torch.ones((c, 1), dtype=torch.float32, device=dev),
+            sec_len=torch.ones((c,), dtype=i32, device=dev),
+            sec_phase=z(dtype=i32), secondary_locked=z(dtype=torch.bool),
+        )
+
+    def from_track_state(self, ts: TrackState) -> FastState:
+        """Adopt a scan-engine state (after pull-in and bit sync; channel
+        offsets must already be group/bit aligned). New tensors only: the
+        scan state stays untouched."""
+        d = ts.carrier_doppler_hz
+        if self._gains.order == 3:
+            w0, x0 = torch.zeros_like(d), 2.0 * d
+        else:
+            w0, x0 = d.clone(), torch.zeros_like(d)
+        c = d.shape[0]
+        dev = d.device
+        return FastState(
+            active=ts.active.clone(), offset=ts.offset.clone(),
+            rem_code_phase_samples=ts.rem_code_phase_samples.clone(),
+            rem_carr_phase_rad=ts.rem_carr_phase_rad.clone(),
+            carrier_doppler_hz=d.clone(), if_freq_hz=ts.if_freq_hz.clone(),
+            code_doppler_chips=ts.code_doppler_chips.clone(),
+            carr_w=w0, carr_x=x0,
+            code_x_hist=ts.code_x_hist.clone(),
+            code_y_hist=ts.code_y_hist.clone(),
+            p_old_re=ts.p_old_re.clone(), p_old_im=ts.p_old_im.clone(),
+            prompt_buf_re=ts.prompt_buf_re.clone(),
+            prompt_buf_im=ts.prompt_buf_im.clone(),
+            prompt_count=ts.prompt_count.clone(),
+            cn0_db_hz=ts.cn0_db_hz.clone(),
+            carrier_lock_test=ts.carrier_lock_test.clone(),
+            code_lock_fail=ts.code_lock_fail.clone(),
+            carrier_lock_fail=ts.carrier_lock_fail.clone(),
+            loss_of_lock=ts.loss_of_lock.clone(),
+            sec_signs=torch.ones((c, 1), dtype=torch.float32, device=dev),
+            sec_len=torch.ones((c,), dtype=torch.int32, device=dev),
+            sec_phase=torch.zeros((c,), dtype=torch.int32, device=dev),
+            secondary_locked=torch.zeros((c,), dtype=torch.bool, device=dev),
+        )
+
+    def start_channel(self, state: FastState, ch: int, doppler_hz: float,
+                      offset_samples: int,
+                      if_freq_hz: float = 0.0) -> FastState:
+        from gnss_sdr_tpu_torch.tracking.engine import set_channel
+
+        d = f32(doppler_hz)
+        if self._gains.order == 3:
+            w0, x0 = 0.0, f32(2.0 * F32(d))
+        else:
+            w0, x0 = d, 0.0
+        s = state
+        return s._replace(
+            active=set_channel(s.active, ch, True),
+            offset=set_channel(s.offset, ch, int(offset_samples)),
+            rem_code_phase_samples=set_channel(s.rem_code_phase_samples, ch,
+                                               0.0),
+            rem_carr_phase_rad=set_channel(s.rem_carr_phase_rad, ch, 0.0),
+            carrier_doppler_hz=set_channel(s.carrier_doppler_hz, ch, d),
+            if_freq_hz=set_channel(s.if_freq_hz, ch, f32(if_freq_hz)),
+            code_doppler_chips=set_channel(s.code_doppler_chips, ch, 0.0),
+            carr_w=set_channel(s.carr_w, ch, w0),
+            carr_x=set_channel(s.carr_x, ch, x0),
+            loss_of_lock=set_channel(s.loss_of_lock, ch, False),
+            sec_signs=set_channel(s.sec_signs, ch, 1.0),
+            sec_len=set_channel(s.sec_len, ch, 1),
+            sec_phase=set_channel(s.sec_phase, ch, 0),
+            secondary_locked=set_channel(s.secondary_locked, ch, False),
+        )
+
+    # -- code bank ------------------------------------------------------------
+    def get_bank(self, code_tables) -> torch.Tensor:
+        """[C, P+1, T, win_len] resampled-code bank on the device, cached
+        by the identity of ``code_tables`` (a held reference keeps its id
+        from being recycled)."""
+        if self._bank_cache is not None and self._bank_cache[0] is code_tables:
+            return self._bank_cache[1]
+        tables = code_tables.cpu().numpy() if torch.is_tensor(code_tables) \
+            else np.asarray(code_tables)
+        out = torch.as_tensor(self.build_bank(tables, self._shifts),
+                              device=self.device)
+        self._bank_cache = (code_tables, out)
+        return out
+
+    def build_bank(self, code_tables, shifts: np.ndarray) -> np.ndarray:
+        """Host numpy bank, copied from ``FastTrackingEngine._build_bank``:
+        row p holds each tap's code resampled at the nominal code rate
+        with sub-sample start phase p/P."""
+        cfg = self.cfg
+        tables = np.asarray(code_tables, dtype=np.float32)
+        c, table_len = tables.shape
+        p_phases = self.BANK_PHASES
+        n_taps = shifts.shape[0]
+        t_nom = cfg.code_length_chips / (cfg.chip_rate_cps / cfg.fs)
+        code_step_table = (cfg.chip_rate_cps / cfg.fs
+                           * cfg.code_samples_per_chip)
+        ll = np.arange(self.win_len, dtype=np.float64)
+        bank = np.zeros((c, p_phases + 1, n_taps, self.win_len),
+                        dtype=np.float32)
+        for p in range(p_phases + 1):
+            q = p / p_phases
+            support = ll < (round(t_nom) + (1 if q > 0 else 0))
+            for t in range(n_taps):
+                idx = np.floor((ll - q) * code_step_table
+                               + shifts[t]).astype(np.int64) % table_len
+                rows = tables[:, idx] * support[None, :].astype(np.float32)
+                bank[:, p, t, :] = rows
+        return bank
+
+    # -- one group ------------------------------------------------------------
+    def group_inputs(self, s: FastState):
+        """K1's per-group inputs from the carry: the closed-form period
+        boundaries (exact int + small float fraction), the window starts,
+        the carrier phase at each window start and the bank row and
+        weight of each period. Returns a dict of [C] / [C, K] tensors."""
+        k_ext = self.k
+        total = self.block_samples + self.overlap
+        dev = s.offset.device
+        t_frac = self._t_frac_nom - s.code_doppler_chips * self._t_nom_over_f0
+        kk = torch.arange(k_ext, dtype=torch.float32, device=dev)
+        frac_k = s.rem_code_phase_samples[:, None] \
+            + kk[None, :] * t_frac[:, None]                       # [C,K]
+        fl_k = torch.floor(frac_k)
+        starts = s.offset[:, None] \
+            + torch.arange(k_ext, dtype=torch.int32, device=dev)[None, :] \
+            * self._t_int + fl_k.to(torch.int32)                  # [C,K]
+        rems = frac_k - fl_k
+        win_start = torch.clamp(starts, 0, total - self.win_len)
+        step = TWO_PI_F32 * (s.carrier_doppler_hz + s.if_freq_hz) / self._fs
+        ph0 = s.rem_carr_phase_rad[:, None] + step[:, None] * (
+            win_start - s.offset[:, None]).to(torch.float32)
+        # mid-period code-Doppler drift correction of the bank phase
+        pf_eff = torch.clamp(
+            rems - (s.code_doppler_chips * self._half_t_over_f0)[:, None],
+            0.0, 1.0)
+        pf = pf_eff * float(self.BANK_PHASES)
+        j0 = torch.clamp(torch.floor(pf).to(torch.int32), 0,
+                         self.BANK_PHASES - 1)
+        w = pf - j0.to(torch.float32)
+        return dict(t_frac=t_frac, starts=starts, rems=rems,
+                    win_start=win_start, step=step.contiguous(), ph0=ph0,
+                    j0=j0, w=w)
+
+    def _group(self, s: FastState, src_re, src_im, base: int, bank):
+        """Correlate one K-period group (K1) and close the loops."""
+        process = s.active & (s.offset < self.block_samples) & ~s.loss_of_lock
+        q = self.group_inputs(s)
+        corr_re, corr_im = bank_corr(src_re, src_im, base, q["win_start"],
+                                     q["ph0"], q["step"], bank, q["j0"],
+                                     q["w"], self.n_eff)
+        return self._close_loops(s, process, q["t_frac"], q["starts"],
+                                 q["rems"], corr_re, corr_im, q["step"])
+
+    def _close_loops(self, s: FastState, process, t_frac, starts, rems,
+                     corr_re, corr_im, step):
+        """Group accumulation, DLL/PLL closure, carry, C/N0 and locks, and
+        the packed [C, 5K+4] record."""
+        cfg = self.cfg
+        k_ext = self.k
+        prompt_tap = self.n_taps // 2
+        g_re = torch.sum(corr_re, dim=1)                          # [C,T]
+        g_im = torch.sum(corr_im, dim=1)
+        ep_re = g_re[:, prompt_tap]
+        ep_im = g_im[:, prompt_tap]
+
+        pll_rad = torch.where(
+            s.secondary_locked, disc.pll_four_quadrant_atan(ep_re, ep_im),
+            disc.pll_cloop_two_quadrant_atan(ep_re, ep_im))
+        pll_hz = pll_rad / TWO_PI
+        if cfg.veml:
+            dll_d = disc.dll_nc_vemlp_normalized(
+                g_re[:, 0], g_im[:, 0], g_re[:, 1], g_im[:, 1],
+                g_re[:, 3], g_im[:, 3], g_re[:, 4], g_im[:, 4])
+        else:
+            dll_d = disc.dll_nc_e_minus_l_normalized(
+                g_re[:, 0], g_im[:, 0], g_re[:, 2], g_im[:, 2],
+                cfg.spc, cfg.slope, cfg.y_intercept)
+        (carr_w, carr_x), carrier_doppler = lf.fll_pll_step(
+            (s.carr_w, s.carr_x), torch.zeros_like(pll_hz), pll_hz,
+            self._t_group, self._gains)
+        (code_x_hist, code_y_hist), code_err = lf.iir_step(
+            (s.code_x_hist, s.code_y_hist), dll_d, self._dll_ic, self._dll_oc)
+        code_dop = -code_err
+        if cfg.carrier_aiding:
+            code_dop = code_dop + carrier_doppler * self._aiding
+
+        # ---- carry to the next group (int + small fraction) ---------------
+        frac_end = s.rem_code_phase_samples + self._k_f32 * t_frac
+        fl_end = torch.floor(frac_end)
+        new_offset = s.offset + k_ext * self._t_int + fl_end.to(torch.int32)
+        new_rem = frac_end - fl_end
+        group_len = self._k_t_int_f32 + self._k_f32 * t_frac
+        carr_incr = step * group_len
+        new_rem_carr = torch.remainder(s.rem_carr_phase_rad + carr_incr,
+                                       TWO_PI_F32)
+
+        # ---- C/N0 and locks (per group) -------------------------------------
+        pb_re = torch.cat([ep_re[:, None], s.prompt_buf_re[:, :-1]], dim=1)
+        pb_im = torch.cat([ep_im[:, None], s.prompt_buf_im[:, :-1]], dim=1)
+        count_pre = s.prompt_count
+        have = count_pre >= cfg.cn0_samples
+        first = count_pre == cfg.cn0_samples
+        pcount = torch.clamp(count_pre + 1, max=cfg.cn0_samples + 1)
+        cn0_raw = lockdet.cn0_m2m4_estimator(pb_re, pb_im, self._t_group)
+        cn0_s = torch.where(have, torch.where(
+            first, cn0_raw, self._cn0_a * cn0_raw + self._cn0_1ma * s.cn0_db_hz),
+            s.cn0_db_hz)
+        lock_raw = lockdet.carrier_lock_detector(ep_re[:, None],
+                                                 ep_im[:, None])
+        lock_s = torch.where(have, torch.where(
+            first, lock_raw,
+            self._lock_a * lock_raw + self._lock_1ma * s.carrier_lock_test),
+            s.carrier_lock_test)
+        have_i = have.to(torch.int32)
+        cfail = torch.where(have & (lock_s < cfg.carrier_lock_th),
+                            s.carrier_lock_fail + 1,
+                            torch.clamp(s.carrier_lock_fail - have_i, min=0))
+        kfail = torch.where(have & (cn0_s < cfg.cn0_min),
+                            s.code_lock_fail + 1,
+                            torch.clamp(s.code_lock_fail - have_i, min=0))
+        loss = (cfail > cfg.max_carrier_lock_fail) \
+            | (kfail > cfg.max_code_lock_fail)
+
+        new = FastState(
+            active=s.active, offset=new_offset,
+            rem_code_phase_samples=new_rem, rem_carr_phase_rad=new_rem_carr,
+            carrier_doppler_hz=carrier_doppler, if_freq_hz=s.if_freq_hz,
+            code_doppler_chips=code_dop, carr_w=carr_w, carr_x=carr_x,
+            code_x_hist=code_x_hist, code_y_hist=code_y_hist,
+            p_old_re=ep_re, p_old_im=ep_im,
+            prompt_buf_re=pb_re, prompt_buf_im=pb_im,
+            prompt_count=pcount, cn0_db_hz=cn0_s, carrier_lock_test=lock_s,
+            code_lock_fail=torch.where(loss, torch.zeros_like(kfail), kfail),
+            carrier_lock_fail=torch.where(loss, torch.zeros_like(cfail),
+                                          cfail),
+            loss_of_lock=s.loss_of_lock | (loss & s.active),
+            sec_signs=s.sec_signs, sec_len=s.sec_len, sec_phase=s.sec_phase,
+            secondary_locked=s.secondary_locked,
+        )
+        merged = FastState(*(select(process, nf, of)
+                             for nf, of in zip(new, s)))
+        dopp_out = torch.where(process, carrier_doppler, s.carrier_doppler_hz)
+        cn0_out = torch.where(process, cn0_s, s.cn0_db_hz)
+        p_re = corr_re[:, :, prompt_tap]
+        p_im = corr_im[:, :, prompt_tap]
+        # one flat per-group record [C, 5K+4]: starts | rems | prompts |
+        # data_re | data_im | dopp cn0 valid loss; block-relative starts
+        # stay < 2^24, exact in f32
+        packed = torch.cat([
+            starts.to(torch.float32), rems, p_re, p_re, p_im,
+            torch.stack([dopp_out, cn0_out, process.to(torch.float32),
+                         merged.loss_of_lock.to(torch.float32)], dim=1),
+        ], dim=1)
+        return merged, packed, ep_re, ep_im
+
+    def _block(self, state: FastState, src_re, src_im, base: int, bank):
+        rows, pre, pim = [], [], []
+        for gi in range(self.g):
+            state, packed, ep_re, ep_im = self._group(state, src_re, src_im,
+                                                      base, bank)
+            rows.append(packed)
+            pre.append(ep_re)
+            pim.append(ep_im)
+        state = state._replace(offset=torch.where(
+            state.active, state.offset - self.block_samples, state.offset))
+        return state, torch.stack(rows), torch.stack(pre), torch.stack(pim)
+
+    # -- drivers -----------------------------------------------------------------
+    def process_block(self, state: FastState, block_re, block_im,
+                      code_tables):
+        """One float32 planar block (``block_samples + overlap``). Returns
+        (state, {"packed": [G, C, 5K+4], "prompt_re": [G, C],
+        "prompt_im": [G, C]}); ``code_tables`` [C, L] are banked here."""
+        if block_re.shape[0] != self.block_samples + self.overlap:
+            raise ValueError(
+                f"block must have {self.block_samples + self.overlap} "
+                f"samples, got {block_re.shape[0]}")
+        bank = self.get_bank(code_tables)
+        state, packed, pre, pim = self._block(state, block_re, block_im, 0,
+                                              bank)
+        return state, {"packed": packed, "prompt_re": pre, "prompt_im": pim}
+
+    def superblock_ring_i8(self, state: FastState, ring_i8, base: int,
+                           n_blocks: int, bank):
+        """``n_blocks`` blocks read from the device-resident planar int8
+        ring [2, L] at ``base``; ``bank`` from :meth:`get_bank`. Returns
+        (state, {"packed": [n_blocks, G, C, 5K+4]})."""
+        need = int(base) + int(n_blocks) * self.block_samples + self.overlap
+        if need > ring_i8.shape[1]:
+            raise ValueError("superblock reaches past the end of the ring")
+        out = []
+        for b in range(int(n_blocks)):
+            state, packed, _, _ = self._block(
+                state, ring_i8[0], ring_i8[1],
+                int(base) + b * self.block_samples, bank)
+            out.append(packed)
+        return state, {"packed": torch.stack(out)}

@@ -17,8 +17,22 @@
    handoff time, the fix count and the position error against the truth.
    Every kernel counter is set to 0 just before the run and read just
    after it; a kernel of the path that never launched fails the run.
-5. Prints one ``{"kernels": [...]}`` line, one ``{"slice": ...}`` line
-   and, last, ``{"ok": true, "device": {...}}``.
+5. Conditioned phase: the scene upsampled to an 8 Msps front-end capture
+   (12 s, 96 M samples; the empty outer half of the band filled with
+   seeded white noise) becomes three configs, each run from an INI
+   through ``make_signal_source`` -> ``make_signal_conditioner(...)
+   .apply`` -> ``make_receiver(...).run`` with the slice's checks and the
+   counters read around it: A at IF 1.5 MHz through
+   ``Freq_Xlating_Fir_Filter`` (65 taps, D = 2); B with DME-like pulse
+   pairs through ``Pulse_Blanking_Filter`` + ``Mmse_Resampler``; C with a
+   CW tone through ``Notch_Filter`` + ``Direct_Resampler``. Each config's
+   conditioner kernels (K7a-K7d) are held against their plain versions on
+   its capture. Then 3 s of A stream through the CLI's streaming branch
+   (a FIFO source, ``apply_stream``, the scan receiver), held against
+   the one-shot output.
+6. Prints one ``{"kernels": [...]}`` line, one ``{"slice": ...}`` line,
+   one ``{"conditioned": ...}`` line and, last, ``{"ok": true, "device":
+   {...}}``.
 
 Any failed check exits non-zero before the last line. The script imports
 neither JAX nor the JAX package. Without CUDA, or without the package
@@ -43,7 +57,16 @@ PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 
 TOL = {"bank_corr": 1e-4, "multicorr": 1e-3, "acq_wipeoff": 1e-4,
-       "acq_product": 1e-4, "acq_accum": 1e-4, "acq_stats": 1e-4}
+       "acq_product": 1e-4, "acq_accum": 1e-4, "acq_stats": 1e-4,
+       # K7, relative to the rms of the plain output: K7a sums its taps in
+       # the plain version's order with the same roundings, so only the
+       # float64 sincos of two libraries can differ (an ulp of float32);
+       # K7b-d do the plain version's float32 arithmetic exactly
+       "fir_decim": 1e-5, "pulse_blank": 0.0, "notch_mask": 0.0,
+       "resample": 0.0}
+#: kernels of the unconditioned slice (the production L1 receiver)
+SLICE_KERNELS = ("multicorr", "bank_corr", "acq_wipeoff", "acq_product",
+                 "acq_accum", "acq_stats")
 
 
 def fail(msg: str) -> None:
@@ -126,6 +149,24 @@ def kernel_device_us(torch, fn, kernel_symbol: str):
     us = sum(u * n for u, n in hits)
     n = sum(n for _, n in hits)
     return us / n
+
+
+def event_us(torch, fn, reps: int = 10) -> float:
+    """Median time of one call of ``fn`` in microseconds, CUDA events
+    around a single call between two synchronizations: the device time
+    plus the wrapper's host work between the events (tens of us)."""
+    fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) * 1e3)
+    return sorted(times)[reps // 2]
 
 
 def rel_err(torch, got, want) -> float:
@@ -213,6 +254,37 @@ def check_k3(torch, np, rng):
                 plain_ms=time_ms(torch, lambda: k3.multicorr_plain(*args)),
                 bound_ms=b, bound_by=by, library_ms=None,
                 shape=f"C={c} T={t} L={eng.max_period} int8 ring")
+
+
+def check_k3_long(torch, np, rng):
+    """K3 at windows of 2.6 code periods (2.5 Msps, 6500 samples): past
+    the chips -n_extra .. code_len + n_extra - 1 the kernel drops samples
+    as its segmented-sum oracle does. Returns the error relative to the
+    largest output."""
+    from gnss_sdr_tpu_torch.kernels import multicorr as k3
+
+    dev = torch.device("cuda")
+    c, width = 8, 6500
+    ring = torch.as_tensor(rng.integers(-90, 90, size=(2, 80000))
+                           .astype(np.int8), device=dev)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a), device=dev)
+
+    args = (ring[0], ring[1], 1000,
+            t((np.arange(c) * 8000).astype(np.int32)),
+            t(rng.integers(5000, 6501, c).astype(np.int32)),
+            t(np.sign(rng.standard_normal((c, 1023))).astype(np.float32)),
+            t(np.array([-0.5, 0.0, 0.5], np.float32)),
+            t(rng.uniform(0, 0.4, c).astype(np.float32)),
+            t(np.full(c, 1.023e6 / 2.5e6, np.float32)),
+            t(rng.uniform(0, 6.2, c).astype(np.float32)),
+            t(rng.uniform(-0.02, 0.02, c).astype(np.float32)), width, 2)
+    got_re, got_im = k3.multicorr(*args)
+    want_re, want_im = k3.multicorr_plain(*args)
+    torch.cuda.synchronize()
+    return max(rel_err(torch, got_re, want_re),
+               rel_err(torch, got_im, want_im))
 
 
 def check_k1(torch, np, rng):
@@ -394,6 +466,11 @@ def check_k2(torch, np, rng, prns):
 def kernel_phase(torch, np, prns):
     rng = np.random.default_rng(2024)
     res = [check_k1(torch, np, rng), check_k3(torch, np, rng)]
+    res[1]["long_window_rel_err"] = check_k3_long(torch, np, rng)
+    print(f"chip_smoke: multicorr long window (2.6 periods): rel err "
+          f"{res[1]['long_window_rel_err']:.3g}", file=sys.stderr, flush=True)
+    if not res[1]["long_window_rel_err"] <= TOL["multicorr"]:
+        fail("multicorr disagrees with its plain version at a long window")
     res.extend(check_k2(torch, np, rng, prns))
     for r in res:
         dev_us = "n/a" if r["device_us"] is None else f"{r['device_us']:.2f}"
@@ -457,6 +534,45 @@ def scene(np, build_dir):
     return x, ephs, prns, rx, time.perf_counter() - t0
 
 
+def receiver_conf(prns, xml) -> list[str]:
+    """INI lines of the slice's receiver: the factory defaults (4 Msps,
+    8 channels, K = 20) with assisted ephemerides."""
+    return [
+        "GNSS-SDR.internal_fs_sps=4000000",
+        "Channels_1C.count=8",
+        "Channels_1C.satellites=" + ",".join(str(p) for p in prns),
+        "Acquisition_1C.implementation=GPS_L1_CA_PCPS_Acquisition",
+        "Tracking_1C.implementation=GPS_L1_CA_DLL_PLL_Tracking",
+        "TelemetryDecoder_1C.implementation=GPS_L1_CA_Telemetry_Decoder",
+        "Observables.implementation=Hybrid_Observables",
+        "PVT.implementation=RTKLIB_PVT",
+        f"GNSS-SDR.AGNSS_gps_ephemeris_xml={xml}"]
+
+
+def check_fix_stream(np, rec, sols, rx, fs, what):
+    """The slice's end-to-end checks; returns (mean, max) 3-D error of
+    the second half of the fixes."""
+    if not rec.in_fast_mode:
+        fail(f"{what}: the receiver never handed off to the fast engine")
+    handoff_s = rec.handoff_sample / fs
+    if not handoff_s < 4.0:
+        fail(f"{what}: handoff at {handoff_s} s, not before 4 s")
+    if len(sols) < 5:
+        fail(f"{what}: {len(sols)} fixes, fewer than 5")
+    mean_err, max_err = second_half_err(np, sols, rx)
+    if not (np.isfinite(mean_err) and mean_err < 5.0):
+        fail(f"{what}: mean 3-D error {mean_err} m over the second half")
+    return mean_err, max_err
+
+
+def second_half_err(np, sols, rx):
+    """(mean, max) 3-D error of the second half of the fixes (NaN for
+    none)."""
+    errs = [float(np.linalg.norm(s.pos_ecef - rx))
+            for s in sols[len(sols) // 2:]] or [float("nan")]
+    return float(np.mean(errs)), float(max(errs))
+
+
 def slice_phase(torch, np, build_dir, card):
     from gnss_sdr_tpu_torch.config import FileConfiguration
     from gnss_sdr_tpu_torch.kernels import LAUNCHES, reset_launches
@@ -469,16 +585,7 @@ def slice_phase(torch, np, build_dir, card):
                              os.path.join(build_dir, "gps_ephemeris.xml"))
     conf = os.path.join(build_dir, "rx.conf")
     with open(conf, "w") as fh:
-        fh.write("\n".join([
-            "GNSS-SDR.internal_fs_sps=4000000",
-            "Channels_1C.count=8",
-            "Channels_1C.satellites=" + ",".join(str(p) for p in prns),
-            "Acquisition_1C.implementation=GPS_L1_CA_PCPS_Acquisition",
-            "Tracking_1C.implementation=GPS_L1_CA_DLL_PLL_Tracking",
-            "TelemetryDecoder_1C.implementation=GPS_L1_CA_Telemetry_Decoder",
-            "Observables.implementation=Hybrid_Observables",
-            "PVT.implementation=RTKLIB_PVT",
-            f"GNSS-SDR.AGNSS_gps_ephemeris_xml={xml}", ""]))
+        fh.write("\n".join(receiver_conf(prns, xml) + [""]))
     rec = make_receiver(FileConfiguration(conf))
     torch.cuda.synchronize()
     reset_launches()
@@ -487,27 +594,16 @@ def slice_phase(torch, np, build_dir, card):
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = dict(LAUNCHES)
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in SLICE_KERNELS if launches[k] == 0]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
-    if not rec.in_fast_mode:
-        fail("the receiver never handed off to the fast engine")
-    handoff_s = rec.handoff_sample / fs
-    if not handoff_s < 4.0:
-        fail(f"handoff at {handoff_s} s, not before 4 s")
-    if len(sols) < 5:
-        fail(f"{len(sols)} fixes, fewer than 5")
-    tail = sols[len(sols) // 2:]
-    errs = [float(np.linalg.norm(s.pos_ecef - rx)) for s in tail]
-    mean_err = float(np.mean(errs))
-    if not (np.isfinite(mean_err) and mean_err < 5.0):
-        fail(f"mean 3-D error {mean_err} m over the second half")
+    mean_err, max_err = check_fix_stream(np, rec, sols, rx, fs, "slice")
     tm = dict(rec.timings)
     signal_s = len(x) / fs
     phases = profile_phases(torch, rec)
     result = dict(
-        fixes=len(sols), mean_err_m=mean_err, max_err_m=float(max(errs)),
-        handoff_s=handoff_s, timings=tm,
+        fixes=len(sols), mean_err_m=mean_err, max_err_m=max_err,
+        handoff_s=rec.handoff_sample / fs, timings=tm,
         rtf_phase_a=(tm["phase_a_samples"] / fs) / tm["phase_a_s"],
         rtf_phase_b=(tm["phase_b_samples"] / fs) / tm["phase_b_s"],
         rtf_total=signal_s / run_s, run_s=run_s, signal_s=signal_s,
@@ -548,6 +644,428 @@ def profile_phases(torch, rec):
     return out
 
 
+# ---------------------------------------------------------------------------
+# conditioned slices: the signal conditioner in front of the receiver
+# ---------------------------------------------------------------------------
+
+#: the derived front-end captures: the slice's 4 Msps scene upsampled to
+#: 8 Msps (12 s, 96 M samples), conditioned back to the receiver's 4 Msps
+RAW_FS = 8e6
+NOISE_SEED = 7
+#: B and C resample 8 -> 4 Msps without a low-pass, as the configs are
+#: written, so the outer half of the band aliases in: 3 dB less C/N0, at
+#: which this scene's code-only fixes sit at the 5 m bound with no
+#: conditioner at all (PERF.md, Findings). Their receiver smooths the code
+#: with the carrier, as the repo's production tests do.
+SMOOTHING = "Observables.enable_carrier_smoothing=true"
+#: conditioner (and receiver) keys per config and the conditioner kernels
+#: each one must launch
+CONFIGS = {
+    "A": (["InputFilter.implementation=Freq_Xlating_Fir_Filter",
+           "InputFilter.IF=1500000", "InputFilter.decimation_factor=2",
+           "InputFilter.number_of_taps=65"], ("fir_decim",)),
+    "B": (["InputFilter.implementation=Pulse_Blanking_Filter",
+           "InputFilter.pb_threshold_sigma=4",
+           "Resampler.implementation=Mmse_Resampler", SMOOTHING],
+          ("pulse_blank", "resample")),
+    "C": (["InputFilter.implementation=Notch_Filter",
+           "Resampler.implementation=Direct_Resampler", SMOOTHING],
+          ("notch_mask", "resample")),
+}
+STREAM_S = 3.0
+
+
+def baseband_8msps(torch, np, x):
+    """The 4 Msps scene at 8 Msps on the card: its spectrum zero-padded
+    (test data only, not the port's path), the empty outer half of the
+    band filled with white noise of the in-band density from a seeded
+    numpy Generator. Returns (complex64 tensor, in-band noise power)."""
+    dev = torch.device("cuda")
+    n = len(x)
+    xt = torch.as_tensor(x, device=dev)
+    sigma2 = float(torch.mean(torch.abs(xt) ** 2))
+    spec = torch.fft.fft(xt)
+    del xt
+    up = torch.empty(2 * n, dtype=torch.complex64, device=dev)
+    up[:n // 2] = 2 * spec[:n // 2]
+    up[n // 2 + n:] = 2 * spec[n // 2:]
+    del spec
+    # in-band bins hold 4 n sigma2 on average (2x amplitude for 2x length)
+    noise = np.random.default_rng(NOISE_SEED).standard_normal(
+        (n, 2), dtype=np.float32)
+    up[n // 2:n // 2 + n] = torch.view_as_complex(
+        torch.as_tensor(noise, device=dev)) * float(np.sqrt(2.0 * n * sigma2))
+    del noise
+    return torch.fft.ifft(up), sigma2
+
+
+def tone(torch, np, n, num: int, den: int):
+    """e^{j 2 pi (num/den) k}, k < n, exact: the phase is (num k mod den)."""
+    dev = torch.device("cuda")
+    table = torch.as_tensor(np.exp(2j * np.pi * np.arange(den) / den)
+                            .astype(np.complex64), device=dev)
+    return table[(torch.arange(n, device=dev) * num) % den]
+
+
+def capture(torch, np, name, xb, sigma2):
+    """Config ``name``'s raw 8 Msps capture (numpy complex64). A: at IF
+    +1.5 MHz. B: DME-like pulse pairs (3.5 us rectangular pulses 12 us
+    apart, 2700 pairs/s, +40 dB over the band's noise power). C: a CW
+    tone at +0.7 MHz, +30 dB."""
+    n = xb.shape[0]
+    p_noise = 2.0 * sigma2
+    if name == "A":
+        return (xb * tone(torch, np, n, 3, 16)).cpu().numpy()
+    if name == "C":
+        return (xb + float(np.sqrt(1e3 * p_noise))
+                * tone(torch, np, n, 7, 80)).cpu().numpy()
+    rng = np.random.default_rng(NOISE_SEED + 1)
+    pairs = int(2700 * n / RAW_FS)
+    slot = n // pairs                   # one pair per slot: no overlaps
+    width, gap = int(3.5e-6 * RAW_FS), int(12e-6 * RAW_FS)
+    first = np.arange(pairs) * slot + rng.integers(0, slot - gap - width,
+                                                   pairs)
+    k = np.arange(width)
+    idx = np.concatenate([first[:, None] + k, first[:, None] + gap + k], 1)
+    f = rng.uniform(-1e6, 1e6, pairs)[:, None]
+    ph = rng.uniform(0, 2 * np.pi, pairs)[:, None]
+    vals = np.sqrt(1e4 * p_noise) * np.exp(
+        1j * (2 * np.pi * f / RAW_FS * idx + ph))
+    out = xb.clone()
+    out[torch.as_tensor(idx.reshape(-1), device=xb.device)] += torch.as_tensor(
+        vals.reshape(-1).astype(np.complex64), device=xb.device)
+    return out.cpu().numpy()
+
+
+def k7_entry(torch, name, got, want, ms, plain_ms, nb, no, device_fn,
+             replaces, shape, library_ms=None, **extra):
+    """One K7 kernel line: error relative to the plain output's rms. Its
+    device time is ``event_us``: at these shapes (milliseconds a call)
+    ``torch.profiler`` dropped launch records of the kernels launched
+    through ctypes (PERF.md, Findings)."""
+    b, by = bound_ms(nb, no)
+    diff = torch.abs(got - want)
+    rms = float(torch.sqrt(torch.mean(torch.abs(want) ** 2)))
+    torch.cuda.synchronize()
+    return dict(name=name, route="cuda",
+                source="gnss_sdr_tpu_torch/kernels/csrc/conditioner.cu",
+                replaces=replaces, max_abs_err=float(torch.max(diff)),
+                rel_err=float(torch.max(diff)) / (rms or 1.0),
+                tol=TOL[name], ms=ms,
+                event_us=event_us(torch, device_fn),
+                plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                library_ms=library_ms, shape=shape, **extra)
+
+
+def check_k7(torch, np, name, raw, chain):
+    """The config's conditioner kernels against their plain versions on
+    its raw capture, at the main path's shapes."""
+    from gnss_sdr_tpu_torch.conditioner.fir import nco_step
+    from gnss_sdr_tpu_torch.kernels import conditioner as k7
+
+    x = torch.as_tensor(raw, device="cuda")
+    n = x.shape[0]
+    out = []
+    if name == "A":
+        taps, d = chain.taps, chain.decimation
+        step = nco_step(chain.if_freq_hz, chain.fs_in)
+        args = (x, taps, d, step, 0)
+        got, want = k7.fir_decim(*args), k7.fir_decim_plain(*args)
+        nt, n_out = len(taps), got.shape[0]
+        # the library yardstick: conv1d with stride D over the re/im planes
+        # of the already translated capture
+        xt = torch.view_as_real(k7.translate_plain(x, step, 0)).T
+        planes = torch.nn.functional.pad(xt.contiguous(), (nt - 1, 0))[:, None]
+        w = torch.as_tensor(taps[::-1].copy(), device="cuda")[None, None]
+
+        def conv():
+            return torch.nn.functional.conv1d(planes, w, stride=d)
+
+        lib = conv()[:, 0]
+        torch.cuda.synchronize()
+        lib_err = float(torch.max(torch.abs(torch.complex(lib[0], lib[1])
+                                            - want)))
+        out.append(k7_entry(
+            torch, "fir_decim", got, want,
+            time_ms(torch, lambda: k7.fir_decim(*args), 10),
+            time_ms(torch, lambda: k7.fir_decim_plain(*args), 3),
+            n * 8 + nt * 4 + n_out * 8, n * 6 + n_out * nt * 4,
+            lambda: k7.fir_decim(*args),
+            "gnss_sdr_tpu/conditioner/fir.py:44",
+            f"N={n} complex64, {nt} taps, D={d}, IF {chain.if_freq_hz:g} Hz",
+            library_ms=time_ms(torch, conv, 10), library_max_abs_err=lib_err))
+        return out
+    if name == "B":
+        sig = chain.pb_threshold_sigma
+        got, want = k7.pulse_blank(x, sig), k7.pulse_blank_plain(x, sig)
+        flips = int(torch.sum((got == 0) != (want == 0)))
+        blanked = int(torch.sum(want == 0))
+        out.append(k7_entry(
+            torch, "pulse_blank", got, want,
+            time_ms(torch, lambda: k7.pulse_blank(x, sig), 10),
+            time_ms(torch, lambda: k7.pulse_blank_plain(x, sig), 3),
+            2 * n * 8, 5 * n, lambda: k7.pulse_blank(x, sig),
+            "gnss_sdr_tpu/conditioner/interference.py:25",
+            f"N={n} complex64, sigma={sig:g}", flipped=flips,
+            blanked=blanked))
+        if flips:
+            fail(f"pulse_blank: {flips} blanking decisions differ")
+        mid = want
+    else:
+        k = chain.notch_excision
+        spec = torch.fft.fft(x)
+        got, want = k7.notch_mask(spec, k), k7.notch_mask_plain(spec, k)
+        out.append(k7_entry(
+            torch, "notch_mask", got, want,
+            time_ms(torch, lambda: k7.notch_mask(spec, k), 10),
+            time_ms(torch, lambda: k7.notch_mask_plain(spec, k), 3),
+            2 * n * 8, 5 * n, lambda: k7.notch_mask(spec, k),
+            "gnss_sdr_tpu/conditioner/interference.py:33",
+            f"N={n} complex64 spectrum, k={k:g}",
+            excised=int(torch.sum(want == 0))))
+        mid = torch.fft.ifft(want)
+        del spec
+    mode = k7.MMSE if chain.resampler == "Mmse_Resampler" else k7.DIRECT
+    fi, fo = chain.fs_mid, chain.fs_out
+
+    def run():
+        return k7.resample(mid, fi, fo, mode)
+
+    got, want = run(), k7.resample_plain(mid, fi, fo, mode)
+    n_out = got.shape[0]
+    library_ms = None
+    if mode == k7.DIRECT:
+        from gnss_sdr_tpu_torch.conditioner.resampler import \
+            direct_resample_indices
+
+        idx = torch.as_tensor(direct_resample_indices(n, fi, fo),
+                              device="cuda")
+        library_ms = time_ms(torch, lambda: torch.index_select(mid, 0, idx),
+                             10)
+    out.append(k7_entry(
+        torch, "resample", got, want, time_ms(torch, run, 10),
+        time_ms(torch, lambda: k7.resample_plain(mid, fi, fo, mode), 3),
+        (n if mode == k7.MMSE else n_out) * 8 + n_out * 8,
+        n_out * 6 if mode == k7.MMSE else 0, run,
+        "gnss_sdr_tpu/conditioner/resampler.py:29",
+        f"{chain.resampler} {fi:g} -> {fo:g} sps, N={n} complex64",
+        library_ms=library_ms))
+    if mode == k7.MMSE:
+        # a ratio with fractional positions (8 -> 6.4 Msps) exercises the
+        # interpolation weights, which the chip ratio 2 leaves at 0
+        a = k7.resample(mid, fi, 6.4e6, mode)
+        b = k7.resample_plain(mid, fi, 6.4e6, mode)
+        out[-1]["frac_ratio_max_abs_err"] = float(torch.max(torch.abs(a - b)))
+        if out[-1]["frac_ratio_max_abs_err"] != 0.0:
+            fail("resample: the Mmse kernel differs at ratio 1.25")
+    return out
+
+
+def conditioned_run(torch, np, build_dir, name, raw, prns, xml, rx):
+    """Config ``name`` end to end: its INI, ``make_signal_source`` over
+    the raw capture file, ``make_signal_conditioner(...).apply`` and
+    ``make_receiver(...).run``, with the launch counters read around the
+    conditioner and the receiver."""
+    from gnss_sdr_tpu_torch.config import FileConfiguration
+    from gnss_sdr_tpu_torch.kernels import LAUNCHES, reset_launches
+    from gnss_sdr_tpu_torch.receiver.factory import (make_receiver,
+                                                     make_signal_conditioner,
+                                                     make_signal_source)
+
+    keys, kernels = CONFIGS[name]
+    path = os.path.join(build_dir, f"capture_{name}.dat")
+    raw.tofile(path)
+    conf = os.path.join(build_dir, f"rx_{name}.conf")
+    with open(conf, "w") as fh:
+        fh.write("\n".join(receiver_conf(prns, xml) + [
+            "SignalSource.implementation=File_Signal_Source",
+            f"SignalSource.filename={path}",
+            "SignalSource.item_type=gr_complex",
+            f"SignalSource.sampling_frequency={int(RAW_FS)}",
+            "SignalConditioner.implementation=Signal_Conditioner",
+            "DataTypeAdapter.implementation=Pass_Through", *keys, ""]))
+    config = FileConfiguration(conf)
+    source = make_signal_source(config)
+    chain = make_signal_conditioner(config)
+    rec = make_receiver(config)
+    samples = source.read(0, source.n_samples)
+    os.remove(path)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    y = chain.apply(samples)
+    t1 = time.perf_counter()
+    sols = rec.run(y)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = dict(LAUNCHES)
+    missing = [k for k in SLICE_KERNELS + kernels if launches[k] == 0]
+    if missing:
+        fail(f"config {name}: kernels never launched: {missing}")
+    fs = rec.cfg.fs
+    mean_err, max_err = check_fix_stream(np, rec, sols, rx, fs,
+                                         f"config {name}")
+    tm = rec.timings
+    extra = {}
+    if SMOOTHING in keys:
+        # the same conditioned samples without carrier smoothing: the
+        # code-only error behind the configs' missing low-pass (no check)
+        config.apply_overrides(
+            {"Observables.enable_carrier_smoothing": "false"})
+        extra["unsmoothed_mean_err_m"] = second_half_err(
+            np, make_receiver(config).run(y), rx)[0]
+    return chain, launches, dict(
+        fixes=len(sols), mean_err_m=mean_err, max_err_m=max_err,
+        handoff_s=rec.handoff_sample / fs, conditioner_s=t1 - t0,
+        conditioner_split_s=dict(chain.timings),
+        conditioner_rtf=(len(samples) / RAW_FS) / (t1 - t0),
+        rtf_phase_a=(tm["phase_a_samples"] / fs) / tm["phase_a_s"],
+        rtf_phase_b=(tm["phase_b_samples"] / fs) / tm["phase_b_s"],
+        run_s=t2 - t1, raw_samples=len(samples),
+        launches={k: launches[k] for k in SLICE_KERNELS + kernels}, **extra)
+
+
+def decimation_control(torch, np, build_dir, xb, prns, xml, rx):
+    """The receiver (no smoothing) on the 8 Msps capture decimated by 2
+    with no conditioner at all: the second-half mean error that the
+    aliased outer band alone leaves (B and C's control)."""
+    from gnss_sdr_tpu_torch.config import FileConfiguration
+    from gnss_sdr_tpu_torch.receiver.factory import make_receiver
+
+    conf = os.path.join(build_dir, "rx_control.conf")
+    with open(conf, "w") as fh:
+        fh.write("\n".join(receiver_conf(prns, xml) + [""]))
+    sols = make_receiver(FileConfiguration(conf)).run(
+        xb[::2].cpu().numpy())
+    return second_half_err(np, sols, rx)[0]
+
+
+class RecordingConditioner:
+    """The streaming branch's conditioner, keeping what it returned."""
+
+    def __init__(self, chain):
+        self.chain = chain
+        self.parts = []
+
+    def apply_stream(self, chunk):
+        out = self.chain.apply_stream(chunk)
+        self.parts.append(out)
+        return out
+
+
+def streaming_phase(torch, np, build_dir, raw_a, prns, xml):
+    """The first STREAM_S seconds of config A's raw capture through the
+    CLI's streaming branch (``__main__.stream``): a FIFO source (a file
+    standing in for the pipe), raw chunks of one second, ``apply_stream``
+    and the scan receiver's ``process_block``."""
+    import gnss_sdr_tpu_torch.__main__ as cli
+    from gnss_sdr_tpu_torch.config import FileConfiguration
+    from gnss_sdr_tpu_torch.kernels import LAUNCHES, reset_launches
+    from gnss_sdr_tpu_torch.receiver.factory import (make_receiver,
+                                                     make_signal_conditioner,
+                                                     make_signal_source)
+    from gnss_sdr_tpu_torch.receiver.fsm import ChannelState
+
+    prefix = raw_a[:int(STREAM_S * RAW_FS)]
+    path = os.path.join(build_dir, "stream_A.dat")
+    prefix.tofile(path)
+    conf = os.path.join(build_dir, "rx_stream.conf")
+    with open(conf, "w") as fh:
+        fh.write("\n".join(receiver_conf(prns, xml) + [
+            "SignalSource.implementation=Fifo_Signal_Source",
+            f"SignalSource.filename={path}",
+            "SignalSource.item_type=gr_complex",
+            f"SignalSource.sampling_frequency={int(RAW_FS)}",
+            "SignalConditioner.implementation=Signal_Conditioner",
+            *CONFIGS["A"][0], ""]))
+    config = FileConfiguration(conf)
+    source = make_signal_source(config)
+    chain = RecordingConditioner(make_signal_conditioner(config))
+    rec = make_receiver(config, engine="scan")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    pos = cli.stream(source, chain, rec)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    source.close()
+    os.remove(path)
+    want = ("fir_decim", "multicorr", "acq_wipeoff", "acq_product",
+            "acq_accum", "acq_stats")
+    missing = [k for k in want if launches[k] == 0]
+    if missing:
+        fail(f"streaming: kernels never launched: {missing}")
+    streamed = np.concatenate(chain.parts)
+    one = make_signal_conditioner(config).apply(prefix)
+    if len(streamed) != len(one):
+        fail(f"streaming: {len(streamed)} samples, one-shot {len(one)}")
+    rms = float(np.sqrt(np.mean(np.abs(one) ** 2)))
+    err = float(np.max(np.abs(streamed - one))) / rms
+    if not err <= TOL["fir_decim"]:
+        fail(f"streaming: stream differs from the one-shot output: {err}")
+    tracking = sum(s is ChannelState.TRACKING for s in rec.channel_states())
+    if tracking < 6:
+        fail(f"streaming: {tracking} of 8 channels tracking at the end")
+    return dict(signal_s=STREAM_S, wall_s=wall, rtf=STREAM_S / wall,
+                processed_samples=pos, chunks=len(chain.parts),
+                rel_err_vs_oneshot=err, channels_tracking=tracking,
+                launches={k: launches[k] for k in want})
+
+
+def conditioned_phase(torch, np, build_dir, card):
+    """Configs A, B and C: each config's conditioner kernels checked on
+    its raw capture, then the config end to end; then the streaming run.
+    Returns (K7 kernel lines, the conditioned record)."""
+    from gnss_sdr_tpu_torch.receiver.assistance import save_ephemeris_xml
+
+    x, ephs, prns, rx, _ = scene(np, build_dir)
+    xml = save_ephemeris_xml({p: ephs[p] for p in prns},
+                             os.path.join(build_dir, "gps_ephemeris.xml"))
+    t0 = time.perf_counter()
+    xb, sigma2 = baseband_8msps(torch, np, x)
+    del x
+    derive_s = time.perf_counter() - t0
+    control = decimation_control(torch, np, build_dir, xb, prns, xml, rx)
+    kernels, runs, path_launches = {}, {}, {}
+    stream = None
+    for name in CONFIGS:
+        raw = capture(torch, np, name, xb, sigma2)
+        chain, launches, runs[name] = conditioned_run(
+            torch, np, build_dir, name, raw, prns, xml, rx)
+        path_launches[name] = launches
+        for entry in check_k7(torch, np, name, raw, chain):
+            kernels.setdefault(entry["name"], []).append(entry)
+        print(f"chip_smoke: config {name}: {json.dumps(runs[name])}",
+              file=sys.stderr, flush=True)
+        if name == "A":
+            stream = streaming_phase(torch, np, build_dir, raw, prns, xml)
+        del raw
+    out = []
+    for kname, entries in kernels.items():
+        entry = entries[0]
+        if len(entries) > 1:        # the resampler: Mmse in B, Direct in C
+            entry = dict(entries[0], direct=entries[1],
+                         rel_err=max(e["rel_err"] for e in entries),
+                         max_abs_err=max(e["max_abs_err"] for e in entries))
+        entry["launches"] = sum(pl[kname] for pl in path_launches.values())
+        entry["card"] = card
+        out.append(entry)
+    for r in out:
+        print(f"chip_smoke: {r['name']}: rel err {r['rel_err']:.3g} "
+              f"(tol {r['tol']}), {r['ms'] * 1e3:.2f} us/call, "
+              f"{r['event_us']:.2f} us per single call, plain "
+              f"{r['plain_ms'] * 1e3:.2f} us, bound "
+              f"{r['bound_ms'] * 1e3:.3f} us ({r['bound_by']})",
+              file=sys.stderr, flush=True)
+        if not r["rel_err"] <= r["tol"]:
+            fail(f"{r['name']} disagrees with its plain version: "
+                 f"{r['rel_err']} > {r['tol']}")
+    return out, dict(configs=runs, streaming=stream, derive_s=derive_s,
+                     raw_fs=RAW_FS, noise_power_in_band=sigma2,
+                     control_decimated_mean_err_m=control, card=card)
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
     sys.path.insert(0, ROOT)
@@ -582,8 +1100,11 @@ def main() -> int:
     for r in res:
         r["launches"] = launches.get(r["name"], 0)
         r["card"] = card
-    print(json.dumps({"kernels": res, "build_s": build_s}), flush=True)
+    k7_res, cond_res = conditioned_phase(torch, np, kbuild.BUILD_DIR, card)
+    print(json.dumps({"kernels": res + k7_res, "build_s": build_s}),
+          flush=True)
     print(json.dumps({"slice": slice_res}), flush=True)
+    print(json.dumps({"conditioned": cond_res}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -71,3 +71,19 @@ def code_tables(tables, device="cuda") -> torch.Tensor:
     """[C, L] float32 code tables (or a [C, P+1, T, W] code bank)."""
     return to_tensor(np.asarray(tables, dtype=np.float32),
                      resolve_device(device))
+
+
+def conditioner_state(chain, taps, tail, base: int, next_k: int,
+                      n_in: int) -> None:
+    """Carry a JAX ``SignalConditionerChain``'s streaming state (its
+    ``taps``, ``_tail``, ``_base``, ``_next_k`` and ``_n_in``) into the
+    port's ``chain``, so that its next ``apply_stream`` continues the
+    JAX chain's stream. ``tail`` is ``None`` before the first chunk."""
+    chain.taps = None if taps is None else np.array(taps, np.float32)
+    if tail is None:
+        chain._tail = None
+    else:
+        chain._tail = np.array(tail, np.complex64)
+        chain._base = int(base)
+        chain._next_k = int(next_k)
+    chain._n_in = int(n_in)

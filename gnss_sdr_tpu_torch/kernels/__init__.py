@@ -20,6 +20,10 @@ LAUNCHES: dict[str, int] = {
     "acq_product": 0,   # K2 (b): spectrum x conj(code spectrum)
     "acq_accum": 0,     # K2 (c1): |IFFT|^2 dwell accumulate + row peaks
     "acq_stats": 0,     # K2 (c2): per-PRN argmax, CFAR / second peak
+    "fir_decim": 0,     # K7a: translating decimating FIR (conditioner)
+    "pulse_blank": 0,   # K7b: pulse blanking
+    "notch_mask": 0,    # K7c: frequency-domain notch around the FFTs
+    "resample": 0,      # K7d: Mmse / Direct resampler
 }
 
 

@@ -21,7 +21,7 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 BUILD_DIR = os.path.join(REPO_ROOT, "build", "kernels")
-SOURCES = ("multicorr", "bank_corr", "acq")
+SOURCES = ("multicorr", "bank_corr", "acq", "conditioner")
 NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
 
@@ -145,3 +145,5 @@ VP = ctypes.c_void_p
 I32 = ctypes.c_int
 I64 = ctypes.c_longlong
 F32 = ctypes.c_float
+F64 = ctypes.c_double
+U32 = ctypes.c_uint

@@ -12,7 +12,10 @@
 // boundaries a_c = ceil((c + rem - shift) / step) in float32: the first
 // guess floor(step*n - rem + shift) is corrected against them, so both
 // forms assign every sample at a chip edge to the same chip and differ
-// only in summation order.
+// only in summation order. Like the segmented form, which sums the chips
+// -n_extra .. code_len + n_extra - 1 only, a sample whose unwrapped chip
+// lies outside that range is skipped for that tap (it matters only for
+// windows longer than code_len + 2 n_extra chips).
 //
 // Bound: at the slice's shapes (8 channels x 4016 samples) the work is a
 // few hundred kilobytes and ~1 MFLOP, so a launch is bound by its launch
@@ -45,7 +48,8 @@ multicorr_kernel(const T* __restrict__ src_re, const T* __restrict__ src_im,
                  const float* __restrict__ code_step,
                  const float* __restrict__ rem_carr,
                  const float* __restrict__ carr_step, int max_period,
-                 float* __restrict__ out_re, float* __restrict__ out_im) {
+                 int n_extra, float* __restrict__ out_re,
+                 float* __restrict__ out_im) {
   extern __shared__ float s_code[];
   __shared__ float scratch[2 * NT * 32];
   const int c = blockIdx.x;
@@ -75,6 +79,7 @@ multicorr_kernel(const T* __restrict__ src_re, const T* __restrict__ src_im,
       int idx = static_cast<int>(floorf(__fadd_rn(cp, sh[t])));
       while (chip_start(idx, rc, sh[t], cs) > fn) --idx;
       while (chip_start(idx + 1, rc, sh[t], cs) <= fn) ++idx;
+      if (idx < -n_extra || idx >= code_len + n_extra) continue;
       idx %= code_len;
       if (idx < 0) idx += code_len;
       const float q = s_code[idx];
@@ -97,15 +102,17 @@ int launch(const T* re, const T* im, long long base, const int* start,
            const int* length, const float* code, int code_len,
            const float* shifts, int n_taps, const float* rem_code,
            const float* code_step, const float* rem_carr,
-           const float* carr_step, int max_period, float* out_re,
-           float* out_im, int n_channels, cudaStream_t stream) {
+           const float* carr_step, int max_period, int n_extra,
+           float* out_re, float* out_im, int n_channels,
+           cudaStream_t stream) {
   const size_t smem = sizeof(float) * code_len;
   const dim3 grid(n_channels), block(kThreads);
 #define K3_CASE(NT)                                                        \
   case NT:                                                                 \
     multicorr_kernel<T, NT><<<grid, block, smem, stream>>>(                \
         re, im, base, start, length, code, code_len, shifts, rem_code,     \
-        code_step, rem_carr, carr_step, max_period, out_re, out_im);       \
+        code_step, rem_carr, carr_step, max_period, n_extra, out_re,       \
+        out_im);                                                           \
     break;
   switch (n_taps) {
     K3_CASE(1)
@@ -128,11 +135,11 @@ int multicorr_i8(const int8_t* re, const int8_t* im, long long base,
                  int code_len, const float* shifts, int n_taps,
                  const float* rem_code, const float* code_step,
                  const float* rem_carr, const float* carr_step,
-                 int max_period, float* out_re, float* out_im,
+                 int max_period, int n_extra, float* out_re, float* out_im,
                  int n_channels, void* stream) {
   return launch<int8_t>(re, im, base, start, length, code, code_len, shifts,
                         n_taps, rem_code, code_step, rem_carr, carr_step,
-                        max_period, out_re, out_im, n_channels,
+                        max_period, n_extra, out_re, out_im, n_channels,
                         static_cast<cudaStream_t>(stream));
 }
 
@@ -142,11 +149,11 @@ int multicorr_f32(const float* re, const float* im, long long base,
                   int code_len, const float* shifts, int n_taps,
                   const float* rem_code, const float* code_step,
                   const float* rem_carr, const float* carr_step,
-                  int max_period, float* out_re, float* out_im,
-                  int n_channels, void* stream) {
+                  int max_period, int n_extra, float* out_re,
+                  float* out_im, int n_channels, void* stream) {
   return launch<float>(re, im, base, start, length, code, code_len, shifts,
                        n_taps, rem_code, code_step, rem_carr, carr_step,
-                       max_period, out_re, out_im, n_channels,
+                       max_period, n_extra, out_re, out_im, n_channels,
                        static_cast<cudaStream_t>(stream));
 }
 

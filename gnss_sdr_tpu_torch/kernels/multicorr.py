@@ -16,8 +16,8 @@ from gnss_sdr_tpu_torch.kernels import build as kb
 from gnss_sdr_tpu_torch.ops.correlator import multicorrelate
 
 _ARGTYPES = [kb.VP, kb.VP, kb.I64, kb.VP, kb.VP, kb.VP, kb.I32, kb.VP,
-             kb.I32, kb.VP, kb.VP, kb.VP, kb.VP, kb.I32, kb.VP, kb.VP,
-             kb.I32, kb.VP]
+             kb.I32, kb.VP, kb.VP, kb.VP, kb.VP, kb.I32, kb.I32, kb.VP,
+             kb.VP, kb.I32, kb.VP]
 
 
 def windows(src_re, src_im, base: int, start, width: int):
@@ -46,7 +46,9 @@ def multicorr(src_re, src_im, base: int, start, length, code_tables, shifts,
     ``length`` int32 [C]; the loop quantities float32 [C]. Every window
     must lie inside the planes: ``0 <= start[c]`` and ``base + start[c] +
     max_period <= len``; the scan engine clamps its starts to that range
-    (reading them here would cost a device-to-host copy per step)."""
+    (reading them here would cost a device-to-host copy per step). As in
+    the segmented-sum oracle, samples past the chips ``-n_extra ..
+    code_len + n_extra - 1`` of a tap count for nothing."""
     if src_re.device.type == "cpu":
         return multicorr_plain(src_re, src_im, base, start, length,
                                code_tables, shifts, rem_code, code_step,
@@ -85,7 +87,8 @@ def multicorr(src_re, src_im, base: int, start, length, code_tables, shifts,
             start.data_ptr(), length.data_ptr(), code_tables.data_ptr(),
             code_len, shifts.data_ptr(), t, rem_code.data_ptr(),
             code_step.data_ptr(), rem_carr.data_ptr(), carr_step.data_ptr(),
-            int(max_period), out_re.data_ptr(), out_im.data_ptr(), c,
+            int(max_period), int(n_extra), out_re.data_ptr(),
+            out_im.data_ptr(), c,
             kb.stream_ptr())
     kb.check(err, fn)
     LAUNCHES["multicorr"] += 1

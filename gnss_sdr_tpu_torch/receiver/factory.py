@@ -5,9 +5,10 @@ Port of the single-``Channels_1C`` part of
 flowgraph wiring, gnss_block_factory.cc:637-1330): a reference-style INI
 names implementations per role and the factory builds the production
 (fast-engine) receiver, or the scan receiver with
-``GNSS-SDR.engine=scan``. Unknown names raise with the supported list.
-Every branch the port does not have yet raises ``NotImplementedError``
-naming its ROADMAP item.
+``GNSS-SDR.engine=scan``; the signal conditioner chain in front of it
+and every signal source of the JAX package. Unknown names raise with the
+supported list. Every branch the port does not have yet raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -16,10 +17,13 @@ from gnss_sdr_tpu_torch.config import Configuration
 from gnss_sdr_tpu_torch.receiver.receiver import Receiver, ReceiverConfig
 from gnss_sdr_tpu_torch.sources.file_source import FileSignalSource
 
-SUPPORTED_SOURCES = {"File_Signal_Source"}
-#: sources of the JAX package that the port does not have yet
-LIVE_SOURCES = {"File_Timestamp_Signal_Source", "Fifo_Signal_Source",
-                "Custom_UDP_Signal_Source", "Labsat_Signal_Source"}
+SUPPORTED_SOURCES = {
+    "File_Signal_Source",
+    "File_Timestamp_Signal_Source",
+    "Fifo_Signal_Source",
+    "Custom_UDP_Signal_Source",
+    "Labsat_Signal_Source",
+}
 SUPPORTED_ACQ = {"GPS_L1_CA_PCPS_Acquisition",
                  "GPS_L1_CA_PCPS_Assisted_Acquisition",
                  "GPS_L1_CA_PCPS_Acquisition_Fine_Doppler"}
@@ -46,31 +50,108 @@ def _todo(what: str, item: str):
         f"{item})")
 
 
-def make_signal_conditioner(config: Configuration):
-    """``None`` for a source that runs straight into the receiver; the
-    conditioner chain itself is not ported yet."""
+def make_signal_conditioner(config: Configuration, device="cuda"):
+    """SignalConditioner / DataTypeAdapter / InputFilter / Resampler
+    groups assembled into a :class:`SignalConditionerChain` on ``device``
+    (signal_conditioner.cc:37-85); ``None`` when the conf runs the source
+    straight into the receiver (Pass_Through)."""
     impl = config.property("SignalConditioner.implementation", "")
     if not impl or impl == "Pass_Through":
         return None
-    raise _todo(f"SignalConditioner.implementation={impl!r}",
-                "step 11, the conditioner chain")
+    if impl != "Signal_Conditioner":
+        raise ValueError(
+            f"SignalConditioner.implementation={impl!r} is not available; "
+            f"supported: ['Pass_Through', 'Signal_Conditioner']")
+    from gnss_sdr_tpu_torch.conditioner.chain import (SUPPORTED_ADAPTERS,
+                                                      SignalConditionerChain)
+
+    _check("DataTypeAdapter",
+           config.property("DataTypeAdapter.implementation", ""),
+           SUPPORTED_ADAPTERS)
+    fs_in = float(config.property("SignalSource.sampling_frequency",
+                                  4_000_000))
+    fs_internal = float(config.property("GNSS-SDR.internal_fs_sps", fs_in))
+    cutoff = config.property("InputFilter.cutoff_hz", None)
+    trans = config.property("InputFilter.transition_hz", None)
+    chain = SignalConditionerChain(
+        fs_in=fs_in,
+        input_filter=config.property("InputFilter.implementation",
+                                     "Pass_Through") or "Pass_Through",
+        if_freq_hz=float(config.property("InputFilter.IF", 0.0)),
+        decimation=int(config.property("InputFilter.decimation_factor", 1)),
+        ntaps=int(config.property("InputFilter.number_of_taps",
+                                  config.property("InputFilter.taps", 65))),
+        cutoff_hz=float(cutoff) if cutoff is not None else None,
+        transition_hz=float(trans) if trans is not None else None,
+        resampler=config.property("Resampler.implementation",
+                                  "Pass_Through") or "Pass_Through",
+        resample_fs_out=float(config.property("Resampler.sample_freq_out",
+                                              fs_internal)),
+        pb_threshold_sigma=float(config.property(
+            "InputFilter.pb_threshold_sigma", 4.0)),
+        device=device,
+    )
+    if abs(chain.fs_out - fs_internal) > 1.0:
+        raise ValueError(
+            f"conditioner output rate {chain.fs_out} sps does not match "
+            f"GNSS-SDR.internal_fs_sps={fs_internal}; fix the "
+            "InputFilter.decimation_factor / Resampler.sample_freq_out "
+            "keys (the reference flowgraph has the same invariant)")
+    return chain
 
 
 def make_signal_source(config: Configuration):
     impl = config.property("SignalSource.implementation", "")
     if not impl:
         return None
-    if impl in LIVE_SOURCES:
-        raise _todo(f"SignalSource.implementation={impl!r}",
-                    "step 12, control and live sources")
     _check("SignalSource", impl, SUPPORTED_SOURCES)
-    fs = float(config.property(
-        "GNSS-SDR.internal_fs_sps",
-        config.property("SignalSource.sampling_frequency", 4_000_000)))
+    if config.property("SignalConditioner.implementation", "") \
+            == "Signal_Conditioner":
+        # with a conditioner configured the source runs at the raw
+        # front-end rate; the chain delivers internal_fs_sps
+        fs = float(config.property("SignalSource.sampling_frequency",
+                                   4_000_000))
+    else:
+        fs = float(config.property(
+            "GNSS-SDR.internal_fs_sps",
+            config.property("SignalSource.sampling_frequency", 4_000_000)))
+    item_type = config.property("SignalSource.item_type", "gr_complex")
+    if impl == "Fifo_Signal_Source":
+        from gnss_sdr_tpu_torch.sources import FifoSignalSource
+
+        return FifoSignalSource(
+            config.property("SignalSource.filename", ""), fs,
+            item_type=config.property("SignalSource.sample_type", item_type))
+    if impl == "Custom_UDP_Signal_Source":
+        from gnss_sdr_tpu_torch.sources import UdpSignalSource
+
+        return UdpSignalSource(
+            port=config.property("SignalSource.port", 1234),
+            sampling_frequency=fs,
+            sample_type=config.property("SignalSource.sample_type", "cbyte"),
+            iq_swap=config.property("SignalSource.IQ_swap", False),
+            address=config.property("SignalSource.origin_address",
+                                    "127.0.0.1"))
+    if impl == "Labsat_Signal_Source":
+        from gnss_sdr_tpu_torch.sources import LabsatSignalSource
+
+        return LabsatSignalSource(
+            config.property("SignalSource.filename", ""),
+            sampling_frequency=fs)
+    if impl == "File_Timestamp_Signal_Source":
+        from gnss_sdr_tpu_torch.sources import FileTimestampSignalSource
+
+        return FileTimestampSignalSource(
+            config.property("SignalSource.filename", ""),
+            config.property("SignalSource.timestamp_filename", ""),
+            sampling_frequency=fs, item_type=item_type,
+            timestamp_clock_offset_ms=config.property(
+                "SignalSource.timestamp_clock_offset_ms", 0.0),
+            samples=config.property("SignalSource.samples", 0))
     return FileSignalSource(
         config.property("SignalSource.filename", ""),
         sampling_frequency=fs,
-        item_type=config.property("SignalSource.item_type", "gr_complex"),
+        item_type=item_type,
         samples=config.property("SignalSource.samples", 0),
         repeat=config.property("SignalSource.repeat", False),
     )

@@ -68,9 +68,10 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
 
 
 def test_import_isolation():
-    """Importing the port, every module of it and chip_smoke leaves JAX
-    and the JAX package out of sys.modules (fresh interpreter: the test
-    process itself has JAX loaded by conftest)."""
+    """Importing the port, every module of it (the conditioner and the
+    live and LabSat sources among them) and chip_smoke leaves JAX and the
+    JAX package out of sys.modules (fresh interpreter: the test process
+    itself has JAX loaded by conftest)."""
     code = r"""
 import importlib, pkgutil, sys
 import gnss_sdr_tpu_torch
@@ -83,6 +84,14 @@ bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
        or m == "jaxlib" or m == "gnss_sdr_tpu" or m.startswith("gnss_sdr_tpu.")]
 assert not bad, bad
 assert len(mods) > 30, mods
+need = {"gnss_sdr_tpu_torch.conditioner.chain",
+        "gnss_sdr_tpu_torch.conditioner.fir",
+        "gnss_sdr_tpu_torch.conditioner.interference",
+        "gnss_sdr_tpu_torch.conditioner.resampler",
+        "gnss_sdr_tpu_torch.kernels.conditioner",
+        "gnss_sdr_tpu_torch.sources.live",
+        "gnss_sdr_tpu_torch.sources.labsat"}
+assert need <= set(mods), need - set(mods)
 print("ok", len(mods))
 """
     env = dict(os.environ, PYTHONPATH=ROOT)

@@ -121,3 +121,99 @@ def test_kernel_wrappers_count_launches(dev):
     acq.acq_wipeoff(x, torch.zeros(2, device=dev), -1e-6)
     acq.acq_wipeoff_plain(x, torch.zeros(2, device=dev), -1e-6)
     assert LAUNCHES["acq_wipeoff"] == 1
+
+
+def test_multicorr_kernel_long_window_matches_plain(dev):
+    """Windows of 2.6 code periods: the kernel skips the samples past the
+    chips -n_extra .. code_len + n_extra - 1, as the oracle does."""
+    from gnss_sdr_tpu_torch.kernels import multicorr as k3
+
+    rng = np.random.default_rng(21)
+    c, width = 3, 6500
+    ring = _ring(dev, 20000, 21)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a), device=dev)
+
+    args = (ring[0], ring[1], 1000, t(np.array([0, 3000, 9000], np.int32)),
+            t(np.array([6500, 6000, 6321], np.int32)),
+            t(np.sign(rng.standard_normal((c, 1023))).astype(np.float32)),
+            t(np.array([-0.5, 0.0, 0.5], np.float32)),
+            t(np.array([0.1, 0.3, 0.0], np.float32)),
+            t(np.full(c, 1.023e6 / 2.5e6, np.float32)),
+            t(rng.uniform(0, 6.2, c).astype(np.float32)),
+            t(rng.uniform(-0.02, 0.02, c).astype(np.float32)), width, 2)
+    got = k3.multicorr(*args)
+    want = k3.multicorr_plain(*args)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-4 * float(
+            torch.max(torch.abs(want[0]))))
+
+
+def _cx(dev, n, seed):
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    x[n // 3:n // 3 + 40] *= 100.0                       # a strong pulse
+    x += 40.0 * np.exp(2j * np.pi * 0.125 * np.arange(n))  # a CW tone
+    return torch.as_tensor(x.astype(np.complex64), device=dev)
+
+
+def _rms_close(got, want, tol):
+    rms = float(torch.sqrt(torch.mean(torch.abs(want) ** 2)))
+    assert float(torch.max(torch.abs(got - want))) <= tol * rms
+
+
+@pytest.mark.parametrize("nco_step", [0.0, -1.1780972450961724])
+@pytest.mark.parametrize("decimation,n_taps", [(1, 33), (2, 65), (4, 65),
+                                               (3, 1001)])
+def test_fir_decim_kernel_matches_plain(dev, decimation, n_taps, nco_step):
+    from gnss_sdr_tpu_torch.kernels import conditioner as k7
+
+    x = _cx(dev, 50_001, n_taps)
+    taps = np.random.default_rng(1).standard_normal(n_taps) \
+        .astype(np.float32) / n_taps
+    # an absolute index past 2^31 exercises the 64-bit NCO argument
+    args = (x, taps, decimation, nco_step, 3 << 30)
+    got, want = k7.fir_decim(*args), k7.fir_decim_plain(*args)
+    assert got.shape == want.shape
+    _rms_close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("n", [100_000, 99_999])
+def test_pulse_blank_and_notch_kernels_match_plain(dev, n):
+    from gnss_sdr_tpu_torch.kernels import conditioner as k7
+
+    x = _cx(dev, n, 4)
+    assert torch.equal(k7.pulse_blank(x, 4.0), k7.pulse_blank_plain(x, 4.0))
+    spec = torch.fft.fft(x)
+    assert torch.equal(k7.notch_mask(spec, 8.0),
+                       k7.notch_mask_plain(spec, 8.0))
+
+
+@pytest.mark.parametrize("fs_out", [4e6, 6.4e6, 3.3e6])
+def test_resample_kernel_matches_plain(dev, fs_out):
+    from gnss_sdr_tpu_torch.kernels import conditioner as k7
+
+    x = _cx(dev, 80_001, 6)
+    for mode in (k7.MMSE, k7.DIRECT):
+        got = k7.resample(x, 8e6, fs_out, mode)
+        want = k7.resample_plain(x, 8e6, fs_out, mode)
+        assert torch.equal(got, want), mode
+
+
+def test_conditioner_wrappers_count_launches(dev):
+    from gnss_sdr_tpu_torch.kernels import LAUNCHES, reset_launches
+    from gnss_sdr_tpu_torch.kernels import conditioner as k7
+
+    x = _cx(dev, 4096, 7)
+    reset_launches()
+    k7.fir_decim(x, np.ones(5, np.float32), 2)
+    k7.pulse_blank(x, 4.0)
+    k7.notch_mask(x, 8.0)
+    k7.resample(x, 8e6, 4e6, k7.MMSE)
+    k7.resample(x, 8e6, 4e6, k7.DIRECT)
+    k7.fir_decim_plain(x, np.ones(5, np.float32), 2)
+    k7.pulse_blank_plain(x, 4.0)
+    assert {k: LAUNCHES[k] for k in ("fir_decim", "pulse_blank",
+                                     "notch_mask", "resample")} \
+        == {"fir_decim": 1, "pulse_blank": 1, "notch_mask": 1, "resample": 2}

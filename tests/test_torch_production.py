@@ -7,7 +7,10 @@ the JAX receiver on the scene of ``tests/test_production.py``
 - Against the JAX receiver: the same handoff sample (the same phase-A
   superblock), and fixes at common epochs within 1 m of each other.
 - The CLI (``python -m gnss_sdr_tpu_torch -c rx.conf --device cpu``)
-  prints GGA fixes in fast mode (``test_cli.py``).
+  prints GGA fixes in fast mode (``test_cli.py``), also over the scene
+  upsampled to 5 Msps at an IF of 1.25 MHz through the
+  ``Freq_Xlating_Fir_Filter`` conditioner (``test_conditioner.py:178``),
+  and streams a FIFO source through the scan receiver.
 """
 
 import os
@@ -163,6 +166,85 @@ def test_cli_production_fast_mode_fix_cpu(scene, tmp_path, capsys):
     assert b"</kml>" in kml.read_bytes()
 
 
+def _upsample_to_if(x):
+    """The scene at twice its rate (spectrum zero-padded) shifted up by a
+    quarter of the new rate (1.25 MHz at 5 Msps), as complex64."""
+    n = len(x)
+    spec = torch.fft.fft(torch.from_numpy(x.astype(np.complex64)))
+    up = torch.zeros(2 * n, dtype=torch.complex64)
+    up[:n // 2] = 2 * spec[:n // 2]
+    up[-(n - n // 2):] = 2 * spec[n // 2:]
+    y = torch.fft.ifft(up)
+    rot = torch.tensor([1, 1j, -1, -1j], dtype=torch.complex64)
+    return (y * rot[torch.arange(2 * n) % 4]).numpy()
+
+
+COND_CONF = """
+SignalSource.implementation={source}
+SignalSource.sampling_frequency=5000000
+SignalConditioner.implementation=Signal_Conditioner
+DataTypeAdapter.implementation=Pass_Through
+InputFilter.implementation=Freq_Xlating_Fir_Filter
+InputFilter.IF=1250000
+InputFilter.decimation_factor=2
+InputFilter.number_of_taps=33
+"""
+
+
+def _cond_conf(tmp_path, scene, seconds, source="File_Signal_Source"):
+    from gnss_sdr_tpu_torch.receiver.assistance import save_ephemeris_xml
+
+    x, ephs, prns, _, _ = scene
+    cap = tmp_path / "if_capture.dat"
+    _upsample_to_if(x[:int(seconds * FS)]).tofile(cap)
+    agnss = save_ephemeris_xml({p: ephs[p] for p in prns},
+                               tmp_path / "gps_ephemeris.xml")
+    conf = tmp_path / "rx.conf"
+    conf.write_text(textwrap.dedent(CONF.format(
+        filename=cap, agnss=agnss, sats=",".join(str(p) for p in prns)))
+        + textwrap.dedent(COND_CONF.format(source=source)))
+    return conf
+
+
+def test_cli_conditioned_if_capture_cpu(scene, tmp_path, capsys):
+    """The shared scene at 5 Msps and an IF of 1.25 MHz (the conf of
+    tests/test_conditioner.py:191-232: 33 taps, D = 2) through the CLI:
+    fast mode, >= 4 GGA fixes, mean error < 5 m against the truth."""
+    import gnss_sdr_tpu_torch.__main__ as cli
+
+    conf = _cond_conf(tmp_path, scene, 8.4)
+    rc = cli.main(["-c", str(conf), "--device", "cpu"])
+    captured = capsys.readouterr()
+    assert rc == 0
+    assert "engine=production fast_mode=True" in captured.err
+    sols = cli.last_receiver.solutions
+    fixes = [ln for ln in captured.out.splitlines()
+             if ln.startswith("$GPGGA")]
+    assert len(fixes) >= 4 and len(fixes) == len(sols), captured.err
+    err = np.mean([np.linalg.norm(s.pos_ecef - scene[3]) for s in sols])
+    assert err < 5.0, err
+
+
+def test_cli_streams_a_fifo_source_cpu(scene, tmp_path, capsys):
+    """A FIFO source (a file standing in for the pipe) through the CLI's
+    streaming branch: raw chunks of one second, apply_stream, and the
+    scan receiver block by block until the writer is gone."""
+    import gnss_sdr_tpu_torch.__main__ as cli
+    from gnss_sdr_tpu_torch.receiver.fsm import ChannelState
+
+    conf = _cond_conf(tmp_path, scene, 1.0, source="Fifo_Signal_Source")
+    rc = cli.main(["-c", str(conf), "--device", "cpu"])
+    captured = capsys.readouterr()
+    assert rc == 0
+    assert "engine=scan" in captured.err
+    # one raw second (5 M samples) -> 2.5 M conditioned samples
+    rec = cli.last_receiver
+    blocks = (int(FS) - rec.overlap) // rec.block_samples
+    assert f"processed {blocks * rec.block_samples} samples" in captured.err
+    states = rec.channel_states()
+    assert sum(s is ChannelState.TRACKING for s in states) >= 4, states
+
+
 def test_cli_missing_source_is_an_error(tmp_path):
     import gnss_sdr_tpu_torch.__main__ as cli
 
@@ -195,7 +277,12 @@ def test_factory_scan_engine_and_todo_branches(tmp_path):
         c2.set_property(key, value)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make_receiver(c2, device="cpu")
+    # the live sources are ported: a FIFO source opens its pipe lazily
+    from gnss_sdr_tpu_torch.sources import FifoSignalSource
+
     c3 = InMemoryConfiguration()
     c3.set_property("SignalSource.implementation", "Fifo_Signal_Source")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    assert isinstance(make_signal_source(c3), FifoSignalSource)
+    c3.set_property("SignalSource.implementation", "Nope_Signal_Source")
+    with pytest.raises(ValueError, match="supported"):
         make_signal_source(c3)

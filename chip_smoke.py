@@ -30,9 +30,22 @@
    its capture. Then 3 s of A stream through the CLI's streaming branch
    (a FIFO source, ``apply_stream``, the scan receiver), held against
    the one-shot output.
-6. Prints one ``{"kernels": [...]}`` line, one ``{"slice": ...}`` line,
-   one ``{"conditioned": ...}`` line and, last, ``{"ok": true, "device":
-   {...}}``.
+6. Galileo E1 kernel phase: K1 at the E1 band's fast-engine shapes
+   (the pilot at K = 25 with the E1-B data bank as a sixth tap; E1-B
+   alone at K = 1), K3 on the CBOC sub-chip tables (T = 5 pilot taps, the
+   T = 1 data prompt) and K2 on 4 ms dwells (N = 16000, 80 bins of
+   125 Hz), each against its plain version.
+7. Multi-band phase: the slice's scene plus eight Galileo E1 signals
+   (pilot and data, 45 dB-Hz total; the first seven visible on eight
+   channels) through the multi-band production
+   receiver built by ``make_receiver`` from an INI with ``Channels_1C``
+   and ``Channels_1B`` (``Tracking_1B.track_pilot=true``): fast mode,
+   handoff before 4 s, K = 25 on E1, >= 6 of 8 E1 channels secondary-
+   locked, >= 5 fixes, the last third's mean error under 5 m, >= 12
+   satellites in the last fix, and every kernel of the path launched.
+8. Prints one ``{"kernels": [...]}`` line, one ``{"slice": ...}`` line,
+   one ``{"multiband": ...}`` line, one ``{"conditioned": ...}`` line
+   and, last, ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line. The script imports
 neither JAX nor the JAX package. Without CUDA, or without the package
@@ -253,6 +266,7 @@ def check_k3(torch, np, rng):
                                            "multicorr_kernel"),
                 plain_ms=time_ms(torch, lambda: k3.multicorr_plain(*args)),
                 bound_ms=b, bound_by=by, library_ms=None,
+                variant="GPS L1 C/A",
                 shape=f"C={c} T={t} L={eng.max_period} int8 ring")
 
 
@@ -354,8 +368,17 @@ def check_k1(torch, np, rng):
                                            "bank_corr_kernel"),
                 plain_ms=time_ms(torch, lambda: k1.bank_corr_plain(*args)),
                 bound_ms=b, bound_by=by, library_ms=None,
-                einsum_all_rows_ms=einsum_ms,
+                einsum_all_rows_ms=einsum_ms, variant="GPS L1 C/A",
                 shape=f"C={c} K={k} T={t} n_eff={n} W={fe.win_len}")
+
+
+def ring_dwells(torch, np, ring, n):
+    """The first two ``n``-sample dwells of an int8 ring as complex64
+    tensors on the card."""
+    return [torch.as_tensor((ring[0, i * n:(i + 1) * n].astype(np.float32)
+                             + 1j * ring[1, i * n:(i + 1) * n]
+                             .astype(np.float32)).astype(np.complex64),
+                            device="cuda") for i in range(2)]
 
 
 def check_k2(torch, np, rng, prns):
@@ -364,21 +387,24 @@ def check_k2(torch, np, rng, prns):
     Doppler bins of a 4000-sample dwell."""
     from gnss_sdr_tpu_torch.acquisition.adapters import \
         make_gps_l1ca_acquisition
-    from gnss_sdr_tpu_torch.kernels import acq
 
-    dev = torch.device("cuda")
-    fs = SCENE["fs"]
-    eng = make_gps_l1ca_acquisition(sorted(prns), fs,
+    eng = make_gps_l1ca_acquisition(sorted(prns), SCENE["fs"],
                                     doppler_max=5000.0, doppler_step=250.0,
-                                    max_dwells=2, device=dev)
-    cfg = eng.cfg
-    n = cfg.fft_size
+                                    max_dwells=2, device="cuda")
+    n = eng.cfg.fft_size
     ring = synthetic_ring(np, rng, 2 * n, [(prns[0], 1234.0, 2130.0),
                                            (prns[3], 321.0, -3010.0)])
-    xs = [torch.as_tensor((ring[0, i * n:(i + 1) * n].astype(np.float32)
-                           + 1j * ring[1, i * n:(i + 1) * n]
-                           .astype(np.float32)).astype(np.complex64),
-                          device=dev) for i in range(2)]
+    return check_k2_engine(torch, np, eng, ring_dwells(torch, np, ring, n),
+                           "GPS L1 C/A")
+
+
+def check_k2_engine(torch, np, eng, xs, variant):
+    """The four K2 kernels of acquisition engine ``eng`` on its two
+    dwells ``xs`` against their plain versions."""
+    from gnss_sdr_tpu_torch.kernels import acq
+
+    cfg = eng.cfg
+    n = cfg.fft_size
     code_fft, dop, c0 = eng._code_fft, eng._dopplers, eng._c0
     p, d, eff, off = code_fft.shape[0], dop.shape[0], eng._eff, eng._offset
     out = []
@@ -395,7 +421,7 @@ def check_k2(torch, np, rng, prns):
             max_abs_err=float(torch.max(torch.abs(got - want))),
             rel_err=e, tol=TOL[name], ms=ms, device_us=device_us,
             plain_ms=plain_ms, bound_ms=b,
-            bound_by=by, library_ms=library_ms,
+            bound_by=by, library_ms=library_ms, variant=variant,
             shape=f"P={p} D={d} N={n} eff={eff}"))
 
     wk = acq.acq_wipeoff(xs[0], dop, c0)
@@ -472,17 +498,22 @@ def kernel_phase(torch, np, prns):
     if not res[1]["long_window_rel_err"] <= TOL["multicorr"]:
         fail("multicorr disagrees with its plain version at a long window")
     res.extend(check_k2(torch, np, rng, prns))
+    report(res)
+    return res
+
+
+def report(res):
+    """Print each kernel check; fail on one that disagrees."""
     for r in res:
         dev_us = "n/a" if r["device_us"] is None else f"{r['device_us']:.2f}"
-        print(f"chip_smoke: {r['name']}: rel err {r['rel_err']:.3g} "
-              f"(tol {r['tol']}), {r['ms'] * 1e3:.2f} us/call, "
-              f"{dev_us} us on the device, plain "
+        print(f"chip_smoke: {r['name']} ({r['variant']}): rel err "
+              f"{r['rel_err']:.3g} (tol {r['tol']}), {r['ms'] * 1e3:.2f} "
+              f"us/call, {dev_us} us on the device, plain "
               f"{r['plain_ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.3f} "
               f"us ({r['bound_by']})", file=sys.stderr, flush=True)
         if not r["rel_err"] <= r["tol"]:
-            fail(f"{r['name']} disagrees with its plain version: "
-                 f"{r['rel_err']} > {r['tol']}")
-    return res
+            fail(f"{r['name']} ({r['variant']}) disagrees with its plain "
+                 f"version: {r['rel_err']} > {r['tol']}")
 
 
 # ---------------------------------------------------------------------------
@@ -941,16 +972,41 @@ def decimation_control(torch, np, build_dir, xb, prns, xml, rx):
 
 
 class RecordingConditioner:
-    """The streaming branch's conditioner, keeping what it returned."""
+    """The streaming branch's conditioner, keeping what it returned and
+    the wall seconds it took."""
 
     def __init__(self, chain):
         self.chain = chain
         self.parts = []
+        self.seconds = 0.0
 
     def apply_stream(self, chunk):
+        t0 = time.perf_counter()
         out = self.chain.apply_stream(chunk)
+        self.seconds += time.perf_counter() - t0
         self.parts.append(out)
         return out
+
+
+class Timed:
+    """``obj`` with the wall seconds spent in its method ``name`` summed
+    in ``seconds``; every other attribute passes through."""
+
+    def __init__(self, obj, name):
+        self._obj, self._name, self.seconds = obj, name, 0.0
+
+    def __getattr__(self, attr):
+        fn = getattr(self._obj, attr)
+        if attr != self._name:
+            return fn
+
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                self.seconds += time.perf_counter() - t0
+        return timed
 
 
 def streaming_phase(torch, np, build_dir, raw_a, prns, xml):
@@ -982,10 +1038,12 @@ def streaming_phase(torch, np, build_dir, raw_a, prns, xml):
     source = make_signal_source(config)
     chain = RecordingConditioner(make_signal_conditioner(config))
     rec = make_receiver(config, engine="scan")
+    timed_source = Timed(source, "read_block")
+    timed_rec = Timed(rec, "process_block")
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
-    pos = cli.stream(source, chain, rec)
+    pos = cli.stream(timed_source, chain, timed_rec)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(LAUNCHES)
@@ -1008,6 +1066,8 @@ def streaming_phase(torch, np, build_dir, raw_a, prns, xml):
     if tracking < 6:
         fail(f"streaming: {tracking} of 8 channels tracking at the end")
     return dict(signal_s=STREAM_S, wall_s=wall, rtf=STREAM_S / wall,
+                read_s=timed_source.seconds, condition_s=chain.seconds,
+                receiver_s=timed_rec.seconds,
                 processed_samples=pos, chunks=len(chain.parts),
                 rel_err_vs_oneshot=err, channels_tracking=tracking,
                 launches={k: launches[k] for k in want})
@@ -1066,6 +1126,425 @@ def conditioned_phase(torch, np, build_dir, card):
                      control_decimated_mean_err_m=control, card=card)
 
 
+# ---------------------------------------------------------------------------
+# Galileo E1 shapes and the multi-band slice (GPS L1 C/A + Galileo E1)
+# ---------------------------------------------------------------------------
+
+#: the Galileo E1 band of the multi-band slice: the first ``gal_sats``
+#: visible of ``make_constellation(range(1, 37), spread_seed=7)`` on 8
+#: channels, pilot and data at 45 dB-Hz total against the L1 scene's
+#: noise, the I/NAV pages starting at an even GST second before the scene
+#: (GST = GPST). Seven, not eight: on this scene's first 4.5 s the
+#: eighth (PRN 21) is acquired 75 Hz off, its 4 ms FLL locks at the
+#: +125 Hz alias and its CS25 never syncs, which holds the JAX receiver
+#: and the port alike in phase A (PERF.md, Findings; ROADMAP §3)
+MB = dict(gal_sats=7, gal_cn0_db_hz=45.0, gal_seed=2, spread_seed=7,
+          gal_bits_start_tow_s=7200.0 + 359 * 10.0)
+
+def e1_tracking_config(**kw):
+    """The E1 band's tracking configuration (``receiver/bands.py``)."""
+    from gnss_sdr_tpu_torch.tracking.engine import TrackingConfig
+
+    return TrackingConfig(
+        fs=SCENE["fs"], code_length_chips=4092, chip_rate_cps=1.023e6,
+        code_samples_per_chip=12, veml=True, symbols_per_bit=1,
+        early_late_space_chips=0.15, very_early_late_space_chips=0.6, **kw)
+
+
+def synthetic_e1_ring(np, rng, n: int, chans):
+    """int8 planar ring of ``n`` samples holding one composite Galileo E1
+    signal (E1-B with random symbols minus the CS25-signed E1-C, over
+    sqrt 2) per channel (PRN, code phase, Doppler) plus noise."""
+    from gnss_sdr_tpu_torch.codes.galileo_e1 import (E1C_SECONDARY,
+                                                     galileo_e1_subchips)
+
+    fs = SCENE["fs"]
+    t = np.arange(n, dtype=np.float64)
+    x = (rng.standard_normal(n) + 1j * rng.standard_normal(n)) * 8.0
+    cs = np.array([1.0 if c == "0" else -1.0 for c in E1C_SECONDARY])
+    for prn, delay, dopp in chans:
+        sub = np.floor((t - delay) * 1.023e6 * 12 / fs).astype(np.int64)
+        per = sub // 49104
+        sym = np.sign(rng.standard_normal(per.max() - per.min() + 1))
+        e = (galileo_e1_subchips(prn, "B", True)[sub % 49104]
+             * sym[per - per.min()]
+             - galileo_e1_subchips(prn, "C", True)[sub % 49104]
+             * cs[per % 25]) / np.sqrt(2.0)
+        x = x + 3.0 * e * np.exp(2j * np.pi * dopp * t / fs)
+    re = np.clip(x.real, -127, 127).astype(np.int8)
+    im = np.clip(x.imag, -127, 127).astype(np.int8)
+    return np.stack([re, im])
+
+
+def check_k1_e1(torch, np, rng, pilot: bool):
+    """K1 at the E1 band's fast-engine shapes: the pilot at K = 25 with
+    the E1-B data bank as a sixth tap (T = 5 + 1), or E1-B alone at K = 1
+    (T = 5); 8 channels, 16001-sample windows."""
+    from gnss_sdr_tpu_torch.codes.galileo_e1 import galileo_e1_subchips
+    from gnss_sdr_tpu_torch.kernels import bank_corr as k1
+    from gnss_sdr_tpu_torch.tracking.fast_engine import FastTrackingEngine
+
+    dev = torch.device("cuda")
+    c = 8
+    cfg = e1_tracking_config(track_pilot=pilot,
+                             extend_correlation_symbols=25 if pilot else 1)
+    fe = FastTrackingEngine(cfg, c, 1 if pilot else 25,
+                            sec_max_len=25 if pilot else 1, device=dev)
+    prns = [1, 2, 10, 12, 15, 17, 18, 21]
+    delays = rng.uniform(0, 16000, c)
+    dopps = rng.uniform(-4500, 4500, c)
+    ring = torch.as_tensor(synthetic_e1_ring(
+        np, rng, 2 * fe.block_samples + fe.overlap,
+        list(zip(prns, delays, dopps))), device=dev)
+    s = fe.init_state()
+    for ch in range(c):
+        s = fe.start_channel(s, ch, float(dopps[ch]),
+                             int(np.ceil(delays[ch])) % 16000)
+    s = s._replace(
+        rem_code_phase_samples=torch.as_tensor(
+            rng.uniform(0, 1, c).astype(np.float32), device=dev),
+        rem_carr_phase_rad=torch.as_tensor(
+            rng.uniform(0, 6.28, c).astype(np.float32), device=dev),
+        code_doppler_chips=torch.as_tensor(
+            (dopps / 1540.0).astype(np.float32), device=dev))
+
+    def tables(comp):
+        return torch.as_tensor(np.stack([galileo_e1_subchips(p, comp, True)
+                                         for p in prns]).astype(np.float32),
+                               device=dev)
+
+    bank = fe.get_bank(tables("C"), tables("B")) if pilot \
+        else fe.get_bank(tables("B"))
+    q = fe.group_inputs(s)
+    base = fe.block_samples - fe.k * 16000 // 2
+    args = (ring[0], ring[1], base, q["win_start"], q["ph0"], q["step"],
+            bank, q["j0"], q["w"], fe.n_eff)
+    got_re, got_im = k1.bank_corr(*args)
+    want_re, want_im = k1.bank_corr_plain(*args)
+    torch.cuda.synchronize()
+    prompt = torch.sqrt(want_re[..., 2] ** 2 + want_im[..., 2] ** 2)
+    err = float(torch.max(torch.maximum(
+        torch.abs(got_re - want_re), torch.abs(got_im - want_im))
+        / prompt[..., None]))
+    k, t, n = fe.k, bank.shape[2], fe.n_eff
+    rows = torch.unique(torch.cat([
+        q["j0"] + 17 * torch.arange(c, device=dev)[:, None],
+        q["j0"] + 1 + 17 * torch.arange(c, device=dev)[:, None]]))
+    nb = c * k * n * 2 + int(rows.numel()) * t * n * 4 + c * k * (4 * 4) \
+        + c * k * t * 8
+    no = c * k * n * (8 + 8 * t) + c * k * t * 6
+    b, by = bound_ms(nb, no)
+    idx = (base + q["win_start"].to(torch.int64))[..., None] \
+        + torch.arange(fe.win_len, device=dev)
+    rot = ring[0][idx].to(torch.float32)
+    einsum_ms = time_ms(torch, lambda: torch.einsum("ckl,cptl->ckpt", rot,
+                                                    bank), 10)
+    variant = "E1 pilot + data tap" if pilot else "E1-B data only"
+    return dict(name="bank_corr", route="cuda",
+                source="gnss_sdr_tpu_torch/kernels/csrc/bank_corr.cu",
+                replaces="gnss_sdr_tpu/tracking/fast_engine.py:683"
+                + (", :734" if pilot else ""),
+                max_abs_err=float(torch.max(torch.abs(got_re - want_re))),
+                rel_err=err, tol=TOL["bank_corr"],
+                ms=time_ms(torch, lambda: k1.bank_corr(*args)),
+                device_us=kernel_device_us(torch,
+                                           lambda: k1.bank_corr(*args),
+                                           "bank_corr_kernel"),
+                plain_ms=time_ms(torch, lambda: k1.bank_corr_plain(*args), 5),
+                bound_ms=b, bound_by=by, library_ms=None,
+                einsum_all_rows_ms=einsum_ms, variant=variant,
+                shape=f"C={c} K={k} T={t} n_eff={n} W={fe.win_len}")
+
+
+def check_k3_e1(torch, np, rng):
+    """K3 at the E1 band's scan-engine shapes: 8 channels of 16016-sample
+    windows on the 49104-entry CBOC sub-chip tables of the E1-C pilot
+    (T = 5: +-0.15, +-0.6 chips) and of E1-B at zero shift (T = 1, the
+    data prompt, a second launch on the same windows)."""
+    from gnss_sdr_tpu_torch.codes.galileo_e1 import galileo_e1_subchips
+    from gnss_sdr_tpu_torch.kernels import multicorr as k3
+    from gnss_sdr_tpu_torch.tracking.engine import TrackingEngine
+
+    dev = torch.device("cuda")
+    c = 8
+    eng = TrackingEngine(e1_tracking_config(track_pilot=True), c, 80000,
+                         device=dev)
+    prns = [1, 2, 10, 12, 15, 17, 18, 21]
+    delays = rng.uniform(0, 16000, c)
+    dopps = rng.uniform(-4500, 4500, c)
+    ring = torch.as_tensor(synthetic_e1_ring(
+        np, rng, 4 * 80000 + eng.overlap, list(zip(prns, delays, dopps))),
+        device=dev)
+    s = eng.init_state()
+    for ch in range(c):
+        s = eng.start_channel(s, ch, float(dopps[ch]),
+                              int(np.ceil(delays[ch])) % 16000, 16000)
+    s = s._replace(
+        rem_code_phase_chips=torch.as_tensor(
+            rng.uniform(0, 3.0, c).astype(np.float32), device=dev),
+        rem_carr_phase_rad=torch.as_tensor(
+            rng.uniform(0, 6.28, c).astype(np.float32), device=dev),
+        cur_len=torch.as_tensor(rng.integers(15999, 16002, c)
+                                .astype(np.int32), device=dev))
+    start = eng.window_start(s)
+    out = []
+    for comp, shifts, n_extra, variant in (
+            ("C", eng._shifts, eng._n_extra, "E1 pilot T=5"),
+            ("B", eng._zero_shift, eng._n_extra_data, "E1 data T=1")):
+        codes = torch.as_tensor(np.stack([galileo_e1_subchips(p, comp, True)
+                                          for p in prns]).astype(np.float32),
+                                device=dev)
+        args = (ring[0], ring[1], 80000, start, s.cur_len, codes, shifts,
+                s.rem_code_phase_chips, s.code_phase_step_chips,
+                s.rem_carr_phase_rad, s.carrier_phase_step_rad,
+                eng.max_period, n_extra)
+        got_re, got_im = k3.multicorr(*args)
+        want_re, want_im = k3.multicorr_plain(*args)
+        torch.cuda.synchronize()
+        mid = shifts.shape[0] // 2
+        prompt = torch.sqrt(want_re[:, mid] ** 2 + want_im[:, mid] ** 2)
+        err = float(torch.max(torch.maximum(
+            torch.abs(got_re - want_re), torch.abs(got_im - want_im))
+            / prompt[:, None]))
+        n_valid = int(torch.sum(torch.clamp(s.cur_len, max=eng.max_period)))
+        t = shifts.shape[0]
+        nb = n_valid * 2 + c * codes.shape[1] * 4 + c * 6 * 4 + c * t * 8
+        no = n_valid * (8 + 4 * t)
+        b, by = bound_ms(nb, no)
+        out.append(dict(
+            name="multicorr", route="cuda",
+            source="gnss_sdr_tpu_torch/kernels/csrc/multicorr.cu",
+            replaces="gnss_sdr_tpu/ops/correlator.py:33 (tracking/"
+            "engine.py:454" + (", :465)" if comp == "B" else ")"),
+            max_abs_err=float(torch.max(torch.abs(got_re - want_re))),
+            rel_err=err, tol=TOL["multicorr"],
+            ms=time_ms(torch, lambda: k3.multicorr(*args)),
+            device_us=kernel_device_us(torch, lambda: k3.multicorr(*args),
+                                       "multicorr_kernel"),
+            plain_ms=time_ms(torch, lambda: k3.multicorr_plain(*args), 10),
+            bound_ms=b, bound_by=by, library_ms=None, variant=variant,
+            shape=f"C={c} T={t} L={eng.max_period} table={codes.shape[1]}"))
+    return out
+
+
+def check_k2_e1(torch, np, rng, prns):
+    """K2 at the E1 band's shapes: the band's acquisition engine
+    (``receiver/bands.py``: 4 ms CBOC replicas, 125 Hz bins) over the
+    PRNs of ``Channels_1B.satellites`` on two 16000-sample dwells."""
+    from gnss_sdr_tpu_torch.acquisition.adapters import \
+        make_galileo_e1_acquisition
+
+    eng = make_galileo_e1_acquisition(sorted(prns), SCENE["fs"],
+                                      doppler_max=5000.0, doppler_step=125.0,
+                                      pfa=0.001, max_dwells=2, device="cuda")
+    n = eng.cfg.fft_size
+    ring = synthetic_e1_ring(np, rng, 2 * n, [(prns[0], 5432.0, 1130.0),
+                                              (prns[2], 12345.0, -2610.0)])
+    return check_k2_engine(torch, np, eng, ring_dwells(torch, np, ring, n),
+                           "Galileo E1")
+
+
+def e1_kernel_phase(torch, np, gal_prns):
+    """The kernels of the multi-band path at the E1 band's shapes."""
+    rng = np.random.default_rng(2025)
+    res = [check_k1_e1(torch, np, rng, True),
+           check_k1_e1(torch, np, rng, False)]
+    res.extend(check_k3_e1(torch, np, rng))
+    res.extend(check_k2_e1(torch, np, rng, gal_prns))
+    report(res)
+    return res
+
+
+def mb_geometry():
+    """(Galileo ephemerides, the first MB["gal_sats"] visible PRNs) of the
+    multi-band scene, whose start is the L1 scene's."""
+    from gnss_sdr_tpu_torch.simulate.scenario import (make_constellation,
+                                                      rx_position,
+                                                      visible_sats)
+
+    t_start = scene_geometry()[3]
+    ephs = make_constellation(range(1, 37), toe_s=SCENE["toe_s"],
+                              spread_seed=MB["spread_seed"])
+    prns = [int(v) for v in visible_sats(ephs, rx_position(), t_start)
+            [:MB["gal_sats"]]]
+    if len(prns) < 5:
+        fail(f"only {len(prns)} visible Galileo satellites")
+    return ephs, prns
+
+
+def mb_scene(np, build_dir):
+    """The L1 scene plus the Galileo E1 signals (pilot and data, no noise
+    of their own), cached like the L1 scene."""
+    from gnss_sdr_tpu_torch.simulate.rf_scene import generate_galileo_scene
+
+    x, _, gps_prns, rx, _ = scene(np, build_dir)
+    ephs, prns = mb_geometry()
+    t_start = scene_geometry()[3]
+    key = hashlib.sha1(json.dumps([SCENE, MB, gps_prns, prns],
+                                  sort_keys=True).encode()).hexdigest()[:16]
+    cache = os.path.join(build_dir, "scene_cache", f"l1e1-{key}.npy")
+    t0 = time.perf_counter()
+    if os.path.exists(cache):
+        x = np.load(cache)
+    else:
+        x = x + generate_galileo_scene(
+            ephs, prns, rx, t_start, SCENE["duration_s"], SCENE["fs"],
+            bits_start_tow_s=MB["gal_bits_start_tow_s"],
+            cn0_db_hz=MB["gal_cn0_db_hz"], seed=MB["gal_seed"], noise=False,
+            pilot=True)
+        np.save(cache + ".tmp.npy", x)
+        os.replace(cache + ".tmp.npy", cache)
+    return x, ephs, gps_prns, prns, rx, time.perf_counter() - t0
+
+
+def mb_receiver_conf(gps_prns, gal_prns, xml) -> list[str]:
+    """INI lines of the multi-band receiver: the L1 slice's keys plus a
+    Galileo E1 group tracked on its pilot (the reference's E1 default)."""
+    return receiver_conf(gps_prns, xml) + [
+        "Channels_1B.count=8",
+        "Channels_1B.satellites=" + ",".join(str(p) for p in gal_prns),
+        "Acquisition_1B.implementation=Galileo_E1_PCPS_Ambiguous_Acquisition",
+        "Tracking_1B.implementation=Galileo_E1_DLL_PLL_VEML_Tracking",
+        "Tracking_1B.track_pilot=true",
+        "TelemetryDecoder_1B.implementation=Galileo_E1B_Telemetry_Decoder"]
+
+
+def multiband_phase(torch, np, build_dir, card):
+    """The multi-band production receiver (GPS L1 C/A + Galileo E1 pilot)
+    through ``make_receiver`` on the L1 scene plus seven E1 signals, with
+    the counters read around the run. The INI carries no Galileo
+    assistance (the JAX factory reads only the GPS XML), so the Galileo
+    ephemerides go into ``receiver.ephemerides`` before the run, as the
+    JAX tests pass them."""
+    from gnss_sdr_tpu_torch.config import FileConfiguration
+    from gnss_sdr_tpu_torch.kernels import LAUNCHES, reset_launches
+    from gnss_sdr_tpu_torch.receiver.assistance import save_ephemeris_xml
+    from gnss_sdr_tpu_torch.receiver.factory import make_receiver
+    from gnss_sdr_tpu_torch.receiver.production_multiband import \
+        ProductionMultiBandReceiver
+
+    x, gal_ephs, gps_prns, gal_prns, rx, scene_s = mb_scene(np, build_dir)
+    gps_ephs = scene_geometry()[0]
+    fs = SCENE["fs"]
+    xml = save_ephemeris_xml({p: gps_ephs[p] for p in gps_prns},
+                             os.path.join(build_dir, "gps_ephemeris.xml"))
+    conf = os.path.join(build_dir, "rx_multiband.conf")
+    with open(conf, "w") as fh:
+        fh.write("\n".join(mb_receiver_conf(gps_prns, gal_prns, xml)
+                           + [""]))
+    rec = make_receiver(FileConfiguration(conf))
+    if not isinstance(rec, ProductionMultiBandReceiver):
+        fail(f"make_receiver built {type(rec).__name__} for 1C + 1B")
+    rec.ephemerides.update({("E", p): gal_ephs[p] for p in gal_prns})
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    sols = rec.run(x)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    missing = [k for k in SLICE_KERNELS if launches[k] == 0]
+    if missing:
+        fail(f"multi-band: kernels never launched: {missing}")
+    if not rec.in_fast_mode:
+        fail("multi-band: the receiver never handed off to the fast engines")
+    handoff_s = rec.handoff_sample / fs
+    if not handoff_s < 4.0:
+        fail(f"multi-band: handoff at {handoff_s} s, not before 4 s")
+    ctx = rec._ctx["1B"]
+    if ctx.k != 25:
+        fail(f"multi-band: the E1 fast engine runs K = {ctx.k}, not 25")
+    sec_locked = int(torch.sum(ctx.state.secondary_locked))
+    if sec_locked < 6:
+        fail(f"multi-band: {sec_locked} of 8 E1 channels secondary-locked")
+    if len(sols) < 5:
+        fail(f"multi-band: {len(sols)} fixes, fewer than 5")
+    tail = sols[2 * len(sols) // 3:]
+    errs = [float(np.linalg.norm(s.pos_ecef - rx)) for s in tail]
+    mean_err = float(np.mean(errs))
+    if not (np.isfinite(mean_err) and mean_err < 5.0):
+        fail(f"multi-band: mean 3-D error {mean_err} m over the last third")
+    if sols[-1].n_sats < 12:
+        fail(f"multi-band: {sols[-1].n_sats} satellites in the last fix")
+    tm = dict(rec.timings)
+    by_band = band_launches(rec)
+    for k in ("multicorr", "bank_corr"):
+        if sum(b[k] for b in by_band.values()) != launches[k]:
+            fail(f"multi-band: {k} launches {launches[k]} are not the "
+                 f"bands' {by_band}")
+    profile = profile_mb_phases(torch, np, rec, x)
+    return dict(
+        fixes=len(sols), mean_err_last_third_m=mean_err, max_err_m=max(errs),
+        last_fix_sats=sols[-1].n_sats, handoff_s=handoff_s,
+        e1_secondary_locked=sec_locked, e1_k=ctx.k, timings=tm,
+        rtf_phase_a=(tm["phase_a_samples"] / fs) / tm["phase_a_s"],
+        rtf_phase_b=(tm["phase_b_samples"] / fs) / tm["phase_b_s"],
+        rtf_total=(len(x) / fs) / run_s, run_s=run_s, scene_s=scene_s,
+        channels={"1C": 8, "1B": 8}, gps_prns=gps_prns, gal_prns=gal_prns,
+        gal_cn0_db_hz=MB["gal_cn0_db_hz"], profile=profile,
+        launches={k: launches[k] for k in SLICE_KERNELS},
+        launches_by_band=by_band, card=card), launches
+
+
+def band_launches(rec):
+    """The multi-band run's K3 and K1 launches split by band, from the
+    blocks each band's engines ran: a scan block launches K3 once a step
+    (twice on a pilot-tracked band, for the data prompt), a fast block K1
+    once a group."""
+    out = {}
+    for band in rec.receiver.bands:
+        trk, ctx = band.tracking, rec._ctx[band.cfg.suffix]
+        scan_blocks = trk.abs_block_start // band.block_samples
+        fast_blocks = (ctx.base - trk.abs_block_start) \
+            // ctx.fast.block_samples
+        out[band.cfg.suffix] = dict(
+            multicorr=scan_blocks * trk.engine.n_steps
+            * (2 if trk.cfg.track_pilot else 1),
+            bank_corr=fast_blocks * ctx.fast.g)
+    return out
+
+
+def profile_mb_phases(torch, np, rec, x):
+    """After the run (its launch counts already read): ten more phase-A
+    blocks of both bands' scan engines (acquisition excluded) and one
+    more phase-B superblock (ten fast blocks of each band, dispatched
+    and read back), each under the profiler."""
+    r = rec.receiver
+    blocks = r.band_blocks(x, 0)
+
+    def phase_a():
+        for _ in range(10):
+            for band in r.bands:
+                trk = band.tracking
+                bx = blocks[band.cfg.suffix][:band.block_samples
+                                             + trk.overlap]
+                re = torch.as_tensor(np.ascontiguousarray(
+                    bx.real, np.float32), device="cuda")
+                im = torch.as_tensor(np.ascontiguousarray(
+                    bx.imag, np.float32), device="cuda")
+                trk.engine.process_block(
+                    trk.state, re, im, trk._code_tables_dev,
+                    trk._data_code_tables_dev)[1]["packed"].cpu()
+
+    def phase_b():
+        for ctx in rec._ctx.values():
+            bank = ctx.fast.get_bank(ctx.codes, ctx.data_codes)
+            ctx.fast.superblock_ring_i8(ctx.state, ctx.ring, 0, 10,
+                                        bank)[1]["packed"].cpu()
+
+    out = {}
+    for name, fn in (("phase_a_10_blocks", phase_a),
+                     ("phase_b_superblock", phase_b)):
+        wall, dev, kernels = profile(torch, fn, reps=2)
+        top = sorted(kernels.items(), key=lambda kv: -kv[1][0] * kv[1][1])
+        out[name] = dict(
+            wall_ms=wall, device_ms=dev,
+            busy_share=None if dev is None else dev / wall,
+            top_kernels=[dict(name=k[:60], us_per_launch=u, launches=n / 2)
+                         for k, (u, n) in top[:6]])
+    return out
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
     sys.path.insert(0, ROOT)
@@ -1096,14 +1575,31 @@ def main() -> int:
           flush=True)
 
     res = kernel_phase(torch, np, scene_geometry()[1])
+    e1_res = e1_kernel_phase(torch, np, mb_geometry()[1])
     slice_res, launches = slice_phase(torch, np, kbuild.BUILD_DIR, card)
+    mb_res, mb_launches = multiband_phase(torch, np, kbuild.BUILD_DIR, card)
+    # each kernel line's launches: the run of the path whose shapes it
+    # was checked at (the L1 slice; the multi-band slice, where K1 and K3
+    # count the E1 band's launches: the K1 data-only variant runs on no
+    # path here, E1 being tracked on its pilot, and K2 counts both bands)
     for r in res:
         r["launches"] = launches.get(r["name"], 0)
+    e1 = mb_res["launches_by_band"]["1B"]
+    for r in e1_res:
+        if r["name"] == "multicorr":        # the pilot's and the data's
+            r["launches"] = e1["multicorr"] // 2
+        elif r["name"] == "bank_corr":
+            r["launches"] = 0 if r["variant"] == "E1-B data only" \
+                else e1["bank_corr"]
+        else:
+            r["launches"] = mb_launches[r["name"]]
+    for r in res + e1_res:
         r["card"] = card
     k7_res, cond_res = conditioned_phase(torch, np, kbuild.BUILD_DIR, card)
-    print(json.dumps({"kernels": res + k7_res, "build_s": build_s}),
-          flush=True)
+    print(json.dumps({"kernels": res + e1_res + k7_res,
+                      "build_s": build_s}), flush=True)
     print(json.dumps({"slice": slice_res}), flush=True)
+    print(json.dumps({"multiband": mb_res}), flush=True)
     print(json.dumps({"conditioned": cond_res}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,12 +7,15 @@ conditioner and the receiver through the factory on ``--device`` (the
 card by default) and prints the fixes as NMEA GGA.
 
 - A bounded source (a capture file) is read whole, conditioned in one
-  call and run through the production receiver.
+  call and run through the production receiver: the GPS L1 C/A receiver
+  for a single ``Channels_1C`` group, the multi-band receiver for
+  ``Channels_1C`` with ``Channels_1B`` (GPS L1 C/A + Galileo E1).
 - A live source (FIFO, UDP) is read in raw chunks of about one second,
   each conditioned with the carried stream state
   (``SignalConditionerChain.apply_stream``) and consumed block by block
-  by the scan receiver (:func:`stream`), until the source ends or the
-  user interrupts.
+  by the scan receiver (:func:`stream`; the multi-band scan receiver for
+  two groups), until the source ends or the user interrupts; then the
+  source is closed.
 
 The TCP telecommand server is not ported yet.
 """
@@ -141,6 +144,9 @@ def main(argv=None) -> int:
     finally:
         if kml:
             kml.close()
+        close = getattr(source, "close", None)
+        if close is not None:
+            close()
     fast = getattr(receiver, "in_fast_mode", None)
     engine = "scan" if fast is None else f"production fast_mode={fast}"
     print(f"processed {pos} samples, {len(receiver.solutions)} fixes "

@@ -1,10 +1,12 @@
-"""GPS L1 C/A acquisition factory.
+"""Per-signal acquisition factories, GPS L1 C/A and Galileo E1 part.
 
-Port of the GPS L1 C/A part of ``gnss_sdr_tpu/acquisition/adapters.py``:
-sampled PRN replicas and the PCPS engine configured from a
-``Configuration`` role section (Acq_Conf::SetFromConfiguration semantics).
-The other signals' replicas and the implementation-name registry belong
-to the multi-band path (ROADMAP).
+Port of ``gnss_sdr_tpu/acquisition/adapters.py`` for the two signals the
+port receives: sampled PRN replicas and the PCPS engine configured from a
+``Configuration`` role section (Acq_Conf::SetFromConfiguration
+semantics), the per-signal replica catalogue (``1C``, ``1B``) and the
+implementation-name registry. Every name of the registry is known; the
+QuickSync, Tong, CCCWSR and E5a IQ-CAF variants (K5) and the replicas of
+the other signals raise ``NotImplementedError`` naming their ROADMAP step.
 """
 
 from __future__ import annotations
@@ -17,13 +19,21 @@ from gnss_sdr_tpu_torch.codes.sampling import sample_code_floor
 from gnss_sdr_tpu_torch.config import Configuration
 from gnss_sdr_tpu_torch.constants import get_signal
 
+#: signals whose replicas the port generates
+PORTED_SUFFIXES = ("1C", "1B")
+
+
+def _todo_suffix(suffix: str):
+    return NotImplementedError(
+        f"signal {suffix!r}: only GPS L1 C/A (1C) and Galileo E1 (1B) are "
+        "ported (ROADMAP queue 1, step 8, the remaining bands)")
+
 
 def acq_config_from(config: Configuration, role: str, fs: float,
                     signal_suffix: str = "1C") -> AcqConfig:
     """Read ``role.*`` keys into an AcqConfig (acq_conf.cc defaults)."""
-    if signal_suffix != "1C":
-        raise NotImplementedError(
-            f"signal {signal_suffix!r}: only GPS L1 C/A (1C) is ported")
+    if signal_suffix not in PORTED_SUFFIXES:
+        raise _todo_suffix(signal_suffix)
     sig = get_signal(signal_suffix)
     samples_per_code = sig.samples_per_code(fs)
     return AcqConfig(
@@ -65,6 +75,53 @@ def gps_l1ca_replicas(prns, fs: float,
     return out
 
 
+def galileo_e1_replicas(prns, fs: float, component: str = "B",
+                        cboc: bool = True) -> dict[int, np.ndarray]:
+    """Sampled CBOC/sinBOC E1 replicas over one 4 ms code period
+    (Galileo_E1_PCPS_Ambiguous_Acquisition adapter semantics,
+    galileo_e1_pcps_ambiguous_acquisition.cc)."""
+    from gnss_sdr_tpu_torch.codes.galileo_e1 import galileo_e1_sampled
+
+    return {
+        prn: galileo_e1_sampled(prn, fs, component, cboc).astype(np.complex64)
+        for prn in prns
+    }
+
+
+def make_galileo_e1_acquisition(prns, fs: float,
+                                config: Configuration | None = None,
+                                role: str = "Acquisition_1B",
+                                component: str = "B", cboc: bool = True,
+                                device="cuda",
+                                **overrides) -> PcpsAcquisition:
+    """Galileo E1 PCPS acquisition (4 ms coherent by default).
+
+    Two-step fine Doppler is on by default: with 4 ms coherent periods
+    the pull-in FLL's unambiguous range is +-1/(4T) = +-62.5 Hz, exactly
+    the worst-case error of a 125 Hz coarse grid; the +-15 Hz two-step
+    residual is safely inside it (Acq_Conf::make_2_steps, acq_conf.h:74;
+    pcps_acquisition.cc:697-771)."""
+    if config is not None:
+        cfg = acq_config_from(config, role, fs, "1B")
+    else:
+        sig = get_signal("1B")
+        cfg = AcqConfig(
+            fs=fs,
+            samples_per_code=sig.samples_per_code(fs),
+            code_length_chips=sig.code_length_chips,
+            ms_per_code=4,
+            sampled_ms=4,
+            doppler_step=125.0,
+            make_2_steps=True,
+            doppler_step2=31.25,
+            num_doppler_bins_step2=8,
+        )
+    for key, value in overrides.items():
+        setattr(cfg, key, value)
+    codes = galileo_e1_replicas(prns, fs, component, cboc)
+    return PcpsAcquisition(cfg, codes, device=device)
+
+
 def make_gps_l1ca_acquisition(prns, fs: float,
                               config: Configuration | None = None,
                               role: str = "Acquisition_1C", device="cuda",
@@ -84,3 +141,90 @@ def make_gps_l1ca_acquisition(prns, fs: float,
         setattr(cfg, key, value)
     codes = gps_l1ca_replicas(prns, fs, cfg.sampled_ms)
     return PcpsAcquisition(cfg, codes, device=device)
+
+
+def signal_replicas(suffix: str, prns, fs: float, sampled_ms: int = 0,
+                    component: str | None = None) -> dict[int, np.ndarray]:
+    """Sampled complex acquisition replicas of a ported signal, tiled to
+    ``sampled_ms``."""
+    if suffix not in PORTED_SUFFIXES:
+        raise _todo_suffix(suffix)
+    sig = get_signal(suffix)
+    sampled_ms = sampled_ms or int(round(sig.code_period_ms))
+    periods = max(1, int(round(sampled_ms / sig.code_period_ms)))
+    if suffix == "1B":
+        one = galileo_e1_replicas(prns, fs, component or "B", cboc=True)
+        return {prn: np.tile(code, periods) for prn, code in one.items()}
+    out = {}
+    for prn in prns:
+        one = sample_code_floor(gps_l1ca_code(prn), fs,
+                                sig.chip_rate_cps).astype(np.complex64)
+        out[prn] = np.tile(one, periods)
+    return out
+
+
+def make_acquisition(implementation: str, prns, fs: float,
+                     config: Configuration | None = None,
+                     role: str | None = None, device="cuda", **overrides):
+    """Instantiate an acquisition engine from a reference implementation
+    name (GNSSBlockFactory::GetAcqBlock counterpart). Raises ValueError
+    with the list of known names on an unknown implementation."""
+    spec = ACQ_IMPLEMENTATIONS.get(implementation)
+    if spec is None:
+        raise ValueError(
+            f"Unknown acquisition implementation {implementation!r}; "
+            f"known: {sorted(ACQ_IMPLEMENTATIONS)}")
+    suffix, variant, defaults = spec
+    if variant != "pcps":
+        raise NotImplementedError(
+            f"{implementation} ({variant}, K5) is not ported to "
+            "gnss_sdr_tpu_torch yet (ROADMAP queue 1, step 10, the "
+            "acquisition variants)")
+    if suffix not in PORTED_SUFFIXES:
+        raise _todo_suffix(suffix)
+    role = role or f"Acquisition_{suffix}"
+    if config is not None:
+        cfg = acq_config_from(config, role, fs, suffix)
+    else:
+        sig = get_signal(suffix)
+        cfg = AcqConfig(
+            fs=fs, samples_per_code=sig.samples_per_code(fs),
+            code_length_chips=sig.code_length_chips,
+            ms_per_code=int(round(sig.code_period_ms)),
+            sampled_ms=int(round(sig.code_period_ms)),
+        )
+    for key, value in {**defaults, **overrides}.items():
+        setattr(cfg, key, value)
+    codes = signal_replicas(suffix, prns, fs, cfg.sampled_ms)
+    return PcpsAcquisition(cfg, codes, device=device)
+
+
+# implementation name -> (signal suffix, engine variant, AcqConfig overrides)
+ACQ_IMPLEMENTATIONS: dict[str, tuple[str, str, dict]] = {
+    "GPS_L1_CA_PCPS_Acquisition": ("1C", "pcps", {}),
+    "GPS_L1_CA_PCPS_Assisted_Acquisition": ("1C", "pcps", {}),
+    "GPS_L1_CA_PCPS_Acquisition_Fine_Doppler": (
+        "1C", "pcps", {"make_2_steps": True}),
+    "GPS_L1_CA_PCPS_Tong_Acquisition": ("1C", "tong", {}),
+    "GPS_L1_CA_PCPS_QuickSync_Acquisition": ("1C", "quicksync", {}),
+    "GPS_L2_M_PCPS_Acquisition": ("2S", "pcps", {"sampled_ms": 20}),
+    "GPS_L5i_PCPS_Acquisition": ("L5", "pcps", {}),
+    "Galileo_E1_PCPS_Ambiguous_Acquisition": (
+        "1B", "pcps", {"sampled_ms": 4}),
+    "Galileo_E1_PCPS_8ms_Ambiguous_Acquisition": (
+        "1B", "pcps", {"sampled_ms": 8}),
+    "Galileo_E1_PCPS_CCCWSR_Ambiguous_Acquisition": (
+        "1B", "cccwsr", {"sampled_ms": 4}),
+    "Galileo_E1_PCPS_Tong_Ambiguous_Acquisition": (
+        "1B", "tong", {"sampled_ms": 4}),
+    "Galileo_E1_PCPS_QuickSync_Ambiguous_Acquisition": (
+        "1B", "quicksync", {"sampled_ms": 4}),
+    "Galileo_E5a_Pcps_Acquisition": ("5X", "pcps", {}),
+    "Galileo_E5a_Noncoherent_IQ_Acquisition_CAF": ("5X", "nciq_caf", {}),
+    "Galileo_E5b_PCPS_Acquisition": ("7X", "pcps", {}),
+    "Galileo_E6_PCPS_Acquisition": ("E6", "pcps", {}),
+    "GLONASS_L1_CA_PCPS_Acquisition": ("1G", "pcps", {}),
+    "GLONASS_L2_CA_PCPS_Acquisition": ("2G", "pcps", {}),
+    "BEIDOU_B1I_PCPS_Acquisition": ("B1", "pcps", {}),
+    "BEIDOU_B3I_PCPS_Acquisition": ("B3", "pcps", {}),
+}

@@ -48,8 +48,10 @@ def track_state(fields, device="cuda") -> TrackState:
 
 
 def fast_state(fields, device="cuda") -> FastState:
-    """Fast-engine state from a ``FastState`` field dict; the KF and
-    Gaussian loop carries of the JAX state are dropped."""
+    """Fast-engine state from a ``FastState`` field dict, the secondary
+    wipe-off fields (``sec_signs``, ``sec_len``, ``sec_phase``,
+    ``secondary_locked``) included; the KF and Gaussian loop carries of
+    the JAX state are dropped."""
     return _state(FastState, field_dict(fields), device)
 
 
@@ -71,6 +73,17 @@ def code_tables(tables, device="cuda") -> torch.Tensor:
     """[C, L] float32 code tables (or a [C, P+1, T, W] code bank)."""
     return to_tensor(np.asarray(tables, dtype=np.float32),
                      resolve_device(device))
+
+
+def code_bank(bank, data_bank=None, device="cuda") -> torch.Tensor:
+    """The port's K1 bank from the JAX engine's ``_get_bank`` output and,
+    for a pilot-tracked engine, its ``_get_data_bank`` output appended as
+    one more tap: [C, P+1, T (+1), W]."""
+    bank = np.asarray(bank, dtype=np.float32)
+    if data_bank is not None:
+        bank = np.concatenate(
+            [bank, np.asarray(data_bank, dtype=np.float32)], axis=2)
+    return to_tensor(bank, resolve_device(device))
 
 
 def conditioner_state(chain, taps, tail, base: int, next_k: int,

@@ -4,7 +4,11 @@
 // ::FastTrackingEngine._build.group_body (window slices, carrier
 // wipe-off, contraction with the [C, P+1, T, W] code bank and the linear
 // interpolation between the two phase rows around the remnant code
-// phase). The loop closure stays in PyTorch.
+// phase), and the data-code bank's prompt of a pilot-tracked channel
+// (fast_engine.py:734-741): the wrapper's caller appends the data bank to
+// the pilot bank as one more tap, so the data prompt reads the same
+// rotated samples and the same rows j0 and j0+1. The secondary-code signs,
+// the sum over K and the loop closure stay in PyTorch.
 //
 // For each channel c, period k and tap t of one 20-period group:
 //   a_j = sum_{n < n_eff} bank[c, j, t, n] * x[n] e^{-j(ph0[c,k] + step[c] n)}
@@ -13,7 +17,9 @@
 //
 // Bound: per group it must read C*K windows of int8 samples (2 bytes a
 // sample) and 2 of the 17 bank rows per period (2*T*n_eff floats); at
-// C=8, K=20 that is ~2.6 MB, ~0.8 us at 3.35 TB/s, against ~10 MFLOP.
+// C=8, K=20, T=3 (GPS L1) that is ~2.6 MB, ~0.8 us at 3.35 TB/s, against
+// ~10 MFLOP; at C=8, K=25, T=5+1 (Galileo E1 pilot + data, n_eff=16001)
+// it is at most the 53 MB bank plus ~6 MB of windows, against ~0.3 GFLOP.
 // It is bound by bytes. Design: one block per (channel, period), the ring
 // widened in the load, only rows j0 and j0+1 fetched (the TPU form
 // contracted all 17), one sincosf per sample shared by all taps, and the
@@ -87,7 +93,9 @@ int launch(const T* re, const T* im, long long base, const int* win_start,
   switch (n_taps) {
     K1_CASE(1)
     K1_CASE(3)
+    K1_CASE(4)
     K1_CASE(5)
+    K1_CASE(6)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

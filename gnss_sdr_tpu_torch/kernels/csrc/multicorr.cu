@@ -17,17 +17,24 @@
 // lies outside that range is skipped for that tap (it matters only for
 // windows longer than code_len + 2 n_extra chips).
 //
-// Bound: at the slice's shapes (8 channels x 4016 samples) the work is a
-// few hundred kilobytes and ~1 MFLOP, so a launch is bound by its launch
-// latency, not by bytes or operations. Design: one block per channel, the
-// code table in shared memory (no per-sample global gather), the int8
-// ring widened in the load (no dequantized copy), one sincosf per sample
-// shared by all taps, and a single block reduction at the end.
+// Bound: at the L1 shapes (8 channels x 4016 samples) the work is a few
+// hundred kilobytes and ~1 MFLOP; at the Galileo E1 shapes (8 channels x
+// 16016 samples, 5 taps on 49104-entry CBOC sub-chip tables) it is the
+// 1.6 MB of tables and ~3 MFLOP. Either way a launch is bound by its
+// launch latency, not by bytes or operations. Design: one block per
+// channel, the code table in shared memory (no per-sample global gather;
+// a 196 KB E1 table takes the opt-in dynamic shared memory above 48 KB),
+// the int8 ring widened in the load (no dequantized copy), one sincosf
+// per sample shared by all taps, and a single block reduction at the end.
+// The E1 data-component prompt is a second launch on the same windows:
+// the pilot and data tables do not fit one block's 227 KB together.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+// dynamic shared memory a launch gets without opting in
+constexpr size_t kDefaultSmem = 48 * 1024;
 
 // first sample of chip c: ceil((c + rem - shift) / step), rounded as the
 // segmented-sum form rounds it
@@ -109,6 +116,13 @@ int launch(const T* re, const T* im, long long base, const int* start,
   const dim3 grid(n_channels), block(kThreads);
 #define K3_CASE(NT)                                                        \
   case NT:                                                                 \
+    if (smem > kDefaultSmem) {                                             \
+      const cudaError_t e = cudaFuncSetAttribute(                          \
+          multicorr_kernel<T, NT>,                                         \
+          cudaFuncAttributeMaxDynamicSharedMemorySize,                     \
+          static_cast<int>(smem));                                         \
+      if (e != cudaSuccess) return static_cast<int>(e);                    \
+    }                                                                      \
     multicorr_kernel<T, NT><<<grid, block, smem, stream>>>(                \
         re, im, base, start, length, code, code_len, shifts, rem_code,     \
         code_step, rem_carr, carr_step, max_period, n_extra, out_re,       \

@@ -40,6 +40,8 @@ class PeriodOutput:
     carrier_lock_test: float
     evm: float
     loss_of_lock: bool
+    #: data-component prompt (== prompt unless cfg.track_pilot;
+    #: dll_pll d_correlator_data role)
     data_prompt: complex = 0j
 
 
@@ -62,17 +64,26 @@ class TrackingChannels:
             dtype=np.float32)
         self._code_tables_dev = torch.as_tensor(self._code_tables,
                                                 device=self.device)
+        if cfg.track_pilot:
+            self._data_code_tables = np.zeros_like(self._code_tables)
+            self._data_code_tables_dev = torch.as_tensor(
+                self._data_code_tables, device=self.device)
+        else:
+            self._data_code_tables = None
+            self._data_code_tables_dev = None
         self.prn = [0] * n_channels
         self.acc_carrier_phase_rad = np.zeros(n_channels, dtype=np.float64)
 
     # -- channel management ------------------------------------------------
     def start_channel(self, ch: int, prn: int, code_table: np.ndarray,
                       acq_delay_samples: float, acq_doppler_hz: float,
-                      acq_samplestamp: int, if_freq_hz: float = 0.0) -> None:
+                      acq_samplestamp: int, if_freq_hz: float = 0.0,
+                      data_code_table: np.ndarray | None = None) -> None:
         """Assign a satellite to channel ``ch`` after positive acquisition:
         skip to the first code-period boundary at or after the next block
         start. ``acq_delay_samples`` is the code phase at
-        ``acq_samplestamp``."""
+        ``acq_samplestamp``; ``data_code_table`` is the data component's
+        code of a pilot-tracked channel."""
         cfg = self.cfg
         t_prn_samples = cfg.fs * cfg.code_length_chips / cfg.chip_rate_cps
         delta = (self.abs_block_start - acq_samplestamp) - acq_delay_samples
@@ -83,6 +94,12 @@ class TrackingChannels:
         self._code_tables[ch] = code_table.astype(np.float32)
         self._code_tables_dev = torch.as_tensor(self._code_tables,
                                                 device=self.device)
+        if cfg.track_pilot:
+            if data_code_table is None:
+                raise ValueError("track_pilot channels need data_code_table")
+            self._data_code_tables[ch] = data_code_table.astype(np.float32)
+            self._data_code_tables_dev = torch.as_tensor(
+                self._data_code_tables, device=self.device)
         self.state = self.engine.start_channel(
             self.state, ch, acq_doppler_hz, offset,
             int(round(t_prn_samples)), if_freq_hz=if_freq_hz)
@@ -114,7 +131,8 @@ class TrackingChannels:
         im = torch.as_tensor(np.ascontiguousarray(block.imag, np.float32),
                              device=self.device)
         self.state, out = self.engine.process_block(
-            self.state, re, im, self._code_tables_dev)
+            self.state, re, im, self._code_tables_dev,
+            self._data_code_tables_dev)
         self.abs_block_start += self.block_samples
         return self._emit(out["packed"].cpu().numpy(), block_start)
 
@@ -128,7 +146,7 @@ class TrackingChannels:
         bs = self.block_samples
         self.state, out = self.engine.superblock_ring_i8(
             self.state, ring_dev, int(base), int(n_blocks),
-            self._code_tables_dev)
+            self._code_tables_dev, self._data_code_tables_dev)
         self.abs_block_start += n_blocks * bs
         packed = out["packed"].cpu().numpy()   # ONE device->host copy
         results: list[list[PeriodOutput]] = [

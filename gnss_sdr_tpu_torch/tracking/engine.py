@@ -7,7 +7,9 @@ length and a valid-prefix mask; channels whose next period starts past
 the block's main region idle and resume in the next overlapped block.
 
 Each step is one launch of the K3 correlator (``kernels/multicorr.py``;
-the segmented-sum oracle on the CPU) and the loop body in PyTorch:
+the segmented-sum oracle on the CPU), a second one at zero shift on the
+data-component codes when the loops track a pilot (``track_pilot``), and
+the loop body in PyTorch:
 extended accumulation, FLL pull-in, wide and narrow gains, the DLL IIR,
 C/N0, lock tests, EVM and the packed per-period record. The Python loop
 over steps makes no device-to-host read; the host reads one packed record
@@ -184,10 +186,6 @@ class TrackingEngine:
 
     def __init__(self, cfg: TrackingConfig, n_channels: int,
                  block_samples: int, device="cuda"):
-        if cfg.track_pilot:
-            raise NotImplementedError(
-                "track_pilot (data-component prompt) is not ported yet; "
-                "see ROADMAP queue 1, the multi-band path")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.n_channels = n_channels
@@ -200,6 +198,9 @@ class TrackingEngine:
         taps = cfg.tap_shifts()
         self._shifts = torch.as_tensor(taps, device=dev)
         self._n_extra = n_extra_bins(taps.tolist())
+        # the data-component prompt: one tap at zero shift
+        self._zero_shift = torch.zeros((1,), dtype=torch.float32, device=dev)
+        self._n_extra_data = n_extra_bins([0.0])
         self._gains = lf.FllPllGains.make(
             cfg.fll_bw_hz, cfg.pll_bw_hz, cfg.pll_filter_order)
         self._gains_narrow = lf.FllPllGains.make(
@@ -376,7 +377,8 @@ class TrackingEngine:
         total = self.block_samples + self.overlap
         return torch.clamp(s.offset, 0, total - self.max_period)
 
-    def _step(self, s: TrackState, src_re, src_im, base: int, code_tables):
+    def _step(self, s: TrackState, src_re, src_im, base: int, code_tables,
+              data_code_tables=None):
         """One scan step: K3 correlation + loop body for all channels.
         Returns (new state, packed record [C, 15 + 2T])."""
         cfg, k = self.cfg, self._c
@@ -391,6 +393,20 @@ class TrackingEngine:
             self._n_extra)
         p_re = corr_re[:, prompt_tap]
         p_im = corr_im[:, prompt_tap]
+        if cfg.track_pilot:
+            # data-component prompt (d_correlator_data role): the same
+            # windows and NCO trajectory, the data PRN code, one tap; a
+            # second K3 launch, since the two sub-chip tables of E1 do not
+            # fit one block's shared memory together
+            dp_re, dp_im = multicorr(
+                src_re, src_im, base, start, s.cur_len, data_code_tables,
+                self._zero_shift, s.rem_code_phase_chips,
+                s.code_phase_step_chips, s.rem_carr_phase_rad,
+                s.carrier_phase_step_rad, self.max_period,
+                self._n_extra_data)
+            data_p_re, data_p_im = dp_re[:, 0], dp_im[:, 0]
+        else:
+            data_p_re, data_p_im = p_re, p_im
 
         # ---- extended coherent integration (states 3/4) ----------------
         sign = torch.gather(
@@ -576,20 +592,22 @@ class TrackingEngine:
             torch.stack([
                 process.to(torch.float32), s.offset.to(torch.float32),
                 s.cur_len.to(torch.float32), s.rem_code_phase_samples,
-                p_re, p_im, p_re, p_im, dopp_out, code_dop_out,
+                p_re, p_im, data_p_re, data_p_im, dopp_out, code_dop_out,
                 carr_incr_out_m, cn0_out, lock_out, evm_out,
                 merged.loss_of_lock.to(torch.float32)], dim=1),
             corr_re, corr_im], dim=1)
         return merged, packed
 
     def _block(self, state: TrackState, src_re, src_im, base: int,
-               code_tables):
+               code_tables, data_code_tables=None):
         """All scan steps of one block at ``base`` in the source planes;
         then rebase the offsets. Returns (state, packed [S, C, W])."""
+        if self.cfg.track_pilot and data_code_tables is None:
+            raise ValueError("track_pilot needs data_code_tables")
         rows = []
         for _ in range(self.n_steps):
             state, packed = self._step(state, src_re, src_im, base,
-                                       code_tables)
+                                       code_tables, data_code_tables)
             rows.append(packed)
         bs = self.block_samples
         state = state._replace(offset=torch.where(
@@ -598,29 +616,31 @@ class TrackingEngine:
 
     # -- drivers -------------------------------------------------------------
     def process_block(self, state: TrackState, block_re, block_im,
-                      code_tables):
+                      code_tables, data_code_tables=None):
         """Track one float32 planar block (``block_samples + overlap``
-        samples). Returns (state, {"packed": [S, C, W]})."""
+        samples); with ``cfg.track_pilot``, ``data_code_tables`` carries
+        the data-component codes. Returns (state, {"packed": [S, C, W]})."""
         if block_re.shape[0] != self.block_samples + self.overlap:
             raise ValueError(
                 f"block must have {self.block_samples + self.overlap} "
                 f"samples (block_samples + overlap), got {block_re.shape[0]}")
-        state, packed = self._block(state, block_re, block_im, 0, code_tables)
+        state, packed = self._block(state, block_re, block_im, 0, code_tables,
+                                    data_code_tables)
         return state, {"packed": packed}
 
     def superblock_step(self, state: TrackState, blocks_re, blocks_im,
-                        code_tables):
+                        code_tables, data_code_tables=None):
         """``n`` consecutive [n, block + overlap] float32 blocks. Returns
         (state, {"packed": [n, S, C, W]})."""
         out = []
         for b in range(blocks_re.shape[0]):
             state, packed = self._block(state, blocks_re[b], blocks_im[b], 0,
-                                        code_tables)
+                                        code_tables, data_code_tables)
             out.append(packed)
         return state, {"packed": torch.stack(out)}
 
     def superblock_ring_i8(self, state: TrackState, ring_i8, base: int,
-                           n_blocks: int, code_tables):
+                           n_blocks: int, code_tables, data_code_tables=None):
         """``n_blocks`` blocks read from the device-resident planar int8
         ring [2, L]; block b covers ring[:, base + b*block_samples:]
         [:block + overlap]. The widening to float happens inside K3's
@@ -632,7 +652,8 @@ class TrackingEngine:
         for b in range(int(n_blocks)):
             state, packed = self._block(
                 state, ring_i8[0], ring_i8[1],
-                int(base) + b * self.block_samples, code_tables)
+                int(base) + b * self.block_samples, code_tables,
+                data_code_tables)
             out.append(packed)
         return state, {"packed": torch.stack(out)}
 

@@ -1,17 +1,21 @@
 """Fast steady-state tracking engine: group-batched correlation.
 
 Port of ``gnss_sdr_tpu/tracking/fast_engine.py`` with the code-bank
-correlator, the FLL/PLL loop and no secondary-code wipe-off
-(``correlator="bank"``, ``loop="fllpll"``, ``sec_max_len=1``): the
-production steady state of GPS L1 C/A. In extended coherent integration
-the loops close once per K-period group, so the NCO is constant inside a
-group and all K periods of all channels correlate in one launch of the
-K1 kernel (``kernels/bank_corr.py``) at closed-form period boundaries
+correlator and the FLL/PLL loop (``correlator="bank"``,
+``loop="fllpll"``): the production steady state of GPS L1 C/A (K = 20)
+and of Galileo E1, on its E1-C pilot with the CS25 secondary wiped off
+(K = 25, VEML, the E1-B data bank) or on E1-B alone (K = 1, VEML). In
+extended coherent integration the loops close once per K-period group,
+so the NCO is constant inside a group and all K periods of all channels
+correlate in one launch of the K1 kernel (``kernels/bank_corr.py``) at
+closed-form period boundaries
 
     boundary_k = offset + rem0 + k * T_prn   (int + small-fraction form)
 
-after which :meth:`FastTrackingEngine._close_loops` runs the same loop
-arithmetic as the scan engine's extended mode in PyTorch.
+after which :meth:`FastTrackingEngine._close_loops` wipes off the
+secondary code and runs the same loop arithmetic as the scan engine's
+extended mode in PyTorch. The data-component code of a pilot-tracked
+channel rides in the same launch as one more bank tap.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ from gnss_sdr_tpu_torch.ops import lock_detectors as lockdet
 from gnss_sdr_tpu_torch.ops import loop_filters as lf
 from gnss_sdr_tpu_torch.tracking.engine import (TWO_PI, TWO_PI_F32, F32,
                                                 TrackingConfig, TrackState,
-                                                f32, select)
+                                                f32, select, set_channel)
 
 
 class FastState(NamedTuple):
@@ -60,9 +64,13 @@ class FastState(NamedTuple):
     code_lock_fail: torch.Tensor
     carrier_lock_fail: torch.Tensor
     loss_of_lock: torch.Tensor
-    sec_signs: torch.Tensor           # f32 [C, 1]
+    # pilot secondary-code wipe-off (save_correlation_results,
+    # dll_pll_veml_tracking.cc:1290): period j of a group is multiplied by
+    # sec_signs[c, (sec_phase + j) % sec_len] before the group sum;
+    # sec_len = 1 with sign +1 disables it (GPS L1 C/A)
+    sec_signs: torch.Tensor           # f32 [C, sec_max_len]
     sec_len: torch.Tensor             # int32 [C]
-    sec_phase: torch.Tensor           # int32 [C]
+    sec_phase: torch.Tensor           # int32 [C]: index of the next period
     secondary_locked: torch.Tensor    # bool [C]: four-quadrant PLL
 
 
@@ -88,10 +96,6 @@ class FastTrackingEngine:
             raise NotImplementedError(
                 f"loop={loop!r} (K6) is queued in ROADMAP; only 'fllpll' "
                 "is ported")
-        if sec_max_len != 1 or cfg.track_pilot:
-            raise NotImplementedError(
-                "secondary-code wipe-off and the data bank belong to the "
-                "multi-band path, queued in ROADMAP")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.n_channels = n_channels
@@ -106,7 +110,11 @@ class FastTrackingEngine:
         self.win_len = int(math.ceil((self.max_period + 127) / 128)) * 128
         self.overlap = self.k * spc + self.win_len + 32
         self.n_taps = cfg.n_taps
-        self.sec_max_len = 1
+        #: longest secondary code wiped off on the device (CS25 = 25);
+        #: 1 = no wipe-off
+        self.sec_max_len = int(sec_max_len)
+        #: pilot-tracked: the data code's prompt rides as one more bank tap
+        self.track_pilot = bool(cfg.track_pilot)
         t_nom_f64 = cfg.code_length_chips * cfg.fs / cfg.chip_rate_cps
         #: the bank's support: row 0 holds round(t_nom) samples and rows
         #: with a sub-sample start phase one more; the columns past it
@@ -157,7 +165,8 @@ class FastTrackingEngine:
             prompt_count=z(dtype=i32), cn0_db_hz=z(), carrier_lock_test=z(),
             code_lock_fail=z(dtype=i32), carrier_lock_fail=z(dtype=i32),
             loss_of_lock=z(dtype=torch.bool),
-            sec_signs=torch.ones((c, 1), dtype=torch.float32, device=dev),
+            sec_signs=torch.ones((c, self.sec_max_len), dtype=torch.float32,
+                                 device=dev),
             sec_len=torch.ones((c,), dtype=i32, device=dev),
             sec_phase=z(dtype=i32), secondary_locked=z(dtype=torch.bool),
         )
@@ -191,7 +200,8 @@ class FastTrackingEngine:
             code_lock_fail=ts.code_lock_fail.clone(),
             carrier_lock_fail=ts.carrier_lock_fail.clone(),
             loss_of_lock=ts.loss_of_lock.clone(),
-            sec_signs=torch.ones((c, 1), dtype=torch.float32, device=dev),
+            sec_signs=torch.ones((c, self.sec_max_len), dtype=torch.float32,
+                                 device=dev),
             sec_len=torch.ones((c,), dtype=torch.int32, device=dev),
             sec_phase=torch.zeros((c,), dtype=torch.int32, device=dev),
             secondary_locked=torch.zeros((c,), dtype=torch.bool, device=dev),
@@ -200,8 +210,6 @@ class FastTrackingEngine:
     def start_channel(self, state: FastState, ch: int, doppler_hz: float,
                       offset_samples: int,
                       if_freq_hz: float = 0.0) -> FastState:
-        from gnss_sdr_tpu_torch.tracking.engine import set_channel
-
         d = f32(doppler_hz)
         if self._gains.order == 3:
             w0, x0 = 0.0, f32(2.0 * F32(d))
@@ -226,18 +234,56 @@ class FastTrackingEngine:
             secondary_locked=set_channel(s.secondary_locked, ch, False),
         )
 
+    def set_secondary(self, state: FastState, ch: int, code: str,
+                      phase: int, pure_pilot: bool = True) -> FastState:
+        """Enable secondary-code wipe-off for a channel: ``code`` is the
+        "0"/"1" secondary sequence (CS25, ...), ``phase`` the secondary
+        index of the channel's next period. ``pure_pilot=True`` (a
+        dataless pilot drives the loops) also switches the PLL to the
+        four-quadrant discriminator (d_cloop=false in run_dll_pll,
+        dll_pll_veml_tracking.cc:1110)."""
+        signs = np.asarray([1.0 if c in "0+" else -1.0 for c in code],
+                           dtype=np.float32)
+        if signs.shape[0] > self.sec_max_len:
+            raise ValueError(
+                f"secondary length {signs.shape[0]} > engine sec_max_len "
+                f"{self.sec_max_len}")
+        padded = np.ones((self.sec_max_len,), dtype=np.float32)
+        padded[:signs.shape[0]] = signs
+        s = state
+        return s._replace(
+            sec_signs=set_channel(s.sec_signs, ch, torch.as_tensor(
+                padded, device=s.sec_signs.device)),
+            sec_len=set_channel(s.sec_len, ch, int(signs.shape[0])),
+            sec_phase=set_channel(s.sec_phase, ch,
+                                  int(phase) % signs.shape[0]),
+            secondary_locked=set_channel(s.secondary_locked, ch,
+                                         bool(pure_pilot)),
+        )
+
     # -- code bank ------------------------------------------------------------
-    def get_bank(self, code_tables) -> torch.Tensor:
+    def get_bank(self, code_tables, data_code_tables=None) -> torch.Tensor:
         """[C, P+1, T, win_len] resampled-code bank on the device, cached
-        by the identity of ``code_tables`` (a held reference keeps its id
-        from being recycled)."""
-        if self._bank_cache is not None and self._bank_cache[0] is code_tables:
-            return self._bank_cache[1]
-        tables = code_tables.cpu().numpy() if torch.is_tensor(code_tables) \
-            else np.asarray(code_tables)
-        out = torch.as_tensor(self.build_bank(tables, self._shifts),
-                              device=self.device)
-        self._bank_cache = (code_tables, out)
+        by the identity of the tables (a held reference keeps their ids
+        from being recycled). A pilot-tracked engine appends the data
+        code's single zero-shift bank (``_get_data_bank``'s role) as tap T,
+        so K1 returns the data prompt beside the pilot taps."""
+        if self.track_pilot and data_code_tables is None:
+            raise ValueError("track_pilot engine needs data_code_tables")
+        cache = self._bank_cache
+        if cache is not None and cache[0] is code_tables \
+                and cache[1] is data_code_tables:
+            return cache[2]
+
+        def host(a):
+            return a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+
+        bank = self.build_bank(host(code_tables), self._shifts)
+        if self.track_pilot:
+            bank = np.concatenate([bank, self.build_bank(
+                host(data_code_tables), np.zeros((1,)))], axis=2)
+        out = torch.as_tensor(bank, device=self.device)
+        self._bank_cache = (code_tables, data_code_tables, out)
         return out
 
     def build_bank(self, code_tables, shifts: np.ndarray) -> np.ndarray:
@@ -306,16 +352,36 @@ class FastTrackingEngine:
         corr_re, corr_im = bank_corr(src_re, src_im, base, q["win_start"],
                                      q["ph0"], q["step"], bank, q["j0"],
                                      q["w"], self.n_eff)
+        data_re = data_im = None
+        if self.track_pilot:
+            # tap T is the data code's prompt on the same rotated windows
+            t = self.n_taps
+            data_re, data_im = corr_re[:, :, t], corr_im[:, :, t]
+            corr_re, corr_im = corr_re[:, :, :t], corr_im[:, :, :t]
         return self._close_loops(s, process, q["t_frac"], q["starts"],
-                                 q["rems"], corr_re, corr_im, q["step"])
+                                 q["rems"], corr_re, corr_im, q["step"],
+                                 data_re, data_im)
 
     def _close_loops(self, s: FastState, process, t_frac, starts, rems,
-                     corr_re, corr_im, step):
-        """Group accumulation, DLL/PLL closure, carry, C/N0 and locks, and
-        the packed [C, 5K+4] record."""
+                     corr_re, corr_im, step, data_re=None, data_im=None):
+        """Secondary wipe-off, group accumulation, DLL/PLL closure, carry,
+        C/N0 and locks, and the packed [C, 5K+4] record. ``data_re/im``
+        are the per-period data-component prompts [C, K] of a
+        pilot-tracked channel, else None."""
         cfg = self.cfg
         k_ext = self.k
         prompt_tap = self.n_taps // 2
+        if self.sec_max_len > 1:
+            # period j's sign is sec_signs[(sec_phase + j) % sec_len]
+            jj = torch.arange(k_ext, dtype=torch.int32, device=s.offset.device)
+            sec_idx = torch.remainder(s.sec_phase[:, None] + jj[None, :],
+                                      s.sec_len[:, None])          # [C,K]
+            signs = torch.gather(s.sec_signs, 1, sec_idx.to(torch.int64))
+            corr_re = corr_re * signs[:, :, None]
+            corr_im = corr_im * signs[:, :, None]
+            new_sec_phase = torch.remainder(s.sec_phase + k_ext, s.sec_len)
+        else:
+            new_sec_phase = s.sec_phase
         g_re = torch.sum(corr_re, dim=1)                          # [C,T]
         g_im = torch.sum(corr_im, dim=1)
         ep_re = g_re[:, prompt_tap]
@@ -392,7 +458,7 @@ class FastTrackingEngine:
             carrier_lock_fail=torch.where(loss, torch.zeros_like(cfail),
                                           cfail),
             loss_of_lock=s.loss_of_lock | (loss & s.active),
-            sec_signs=s.sec_signs, sec_len=s.sec_len, sec_phase=s.sec_phase,
+            sec_signs=s.sec_signs, sec_len=s.sec_len, sec_phase=new_sec_phase,
             secondary_locked=s.secondary_locked,
         )
         merged = FastState(*(select(process, nf, of)
@@ -400,12 +466,15 @@ class FastTrackingEngine:
         dopp_out = torch.where(process, carrier_doppler, s.carrier_doppler_hz)
         cn0_out = torch.where(process, cn0_s, s.cn0_db_hz)
         p_re = corr_re[:, :, prompt_tap]
-        p_im = corr_im[:, :, prompt_tap]
+        # the decoder's symbol source: the data-component prompts on
+        # pilot-tracked bands, the (wiped) prompts otherwise
+        dp_re = p_re if data_re is None else data_re
+        dp_im = corr_im[:, :, prompt_tap] if data_im is None else data_im
         # one flat per-group record [C, 5K+4]: starts | rems | prompts |
         # data_re | data_im | dopp cn0 valid loss; block-relative starts
         # stay < 2^24, exact in f32
         packed = torch.cat([
-            starts.to(torch.float32), rems, p_re, p_re, p_im,
+            starts.to(torch.float32), rems, p_re, dp_re, dp_im,
             torch.stack([dopp_out, cn0_out, process.to(torch.float32),
                          merged.loss_of_lock.to(torch.float32)], dim=1),
         ], dim=1)
@@ -425,15 +494,16 @@ class FastTrackingEngine:
 
     # -- drivers -----------------------------------------------------------------
     def process_block(self, state: FastState, block_re, block_im,
-                      code_tables):
+                      code_tables, data_code_tables=None):
         """One float32 planar block (``block_samples + overlap``). Returns
         (state, {"packed": [G, C, 5K+4], "prompt_re": [G, C],
-        "prompt_im": [G, C]}); ``code_tables`` [C, L] are banked here."""
+        "prompt_im": [G, C]}); ``code_tables`` [C, L] (and, pilot-tracked,
+        ``data_code_tables``) are banked here."""
         if block_re.shape[0] != self.block_samples + self.overlap:
             raise ValueError(
                 f"block must have {self.block_samples + self.overlap} "
                 f"samples, got {block_re.shape[0]}")
-        bank = self.get_bank(code_tables)
+        bank = self.get_bank(code_tables, data_code_tables)
         state, packed, pre, pim = self._block(state, block_re, block_im, 0,
                                               bank)
         return state, {"packed": packed, "prompt_re": pre, "prompt_im": pim}
@@ -441,7 +511,8 @@ class FastTrackingEngine:
     def superblock_ring_i8(self, state: FastState, ring_i8, base: int,
                            n_blocks: int, bank):
         """``n_blocks`` blocks read from the device-resident planar int8
-        ring [2, L] at ``base``; ``bank`` from :meth:`get_bank`. Returns
+        ring [2, L] at ``base``; ``bank`` from :meth:`get_bank` (with the
+        data tap when pilot-tracked). Returns
         (state, {"packed": [n_blocks, G, C, 5K+4]})."""
         need = int(base) + int(n_blocks) * self.block_samples + self.overlap
         if need > ring_i8.shape[1]:

@@ -68,8 +68,9 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
 
 
 def test_import_isolation():
-    """Importing the port, every module of it (the conditioner and the
-    live and LabSat sources among them) and chip_smoke leaves JAX and the
+    """Importing the port, every module of it (the conditioner, the live
+    and LabSat sources, the Galileo E1 codes and I/NAV telemetry and the
+    multi-band receivers among them) and chip_smoke leaves JAX and the
     JAX package out of sys.modules (fresh interpreter: the test process
     itself has JAX loaded by conftest)."""
     code = r"""
@@ -90,7 +91,14 @@ need = {"gnss_sdr_tpu_torch.conditioner.chain",
         "gnss_sdr_tpu_torch.conditioner.resampler",
         "gnss_sdr_tpu_torch.kernels.conditioner",
         "gnss_sdr_tpu_torch.sources.live",
-        "gnss_sdr_tpu_torch.sources.labsat"}
+        "gnss_sdr_tpu_torch.sources.labsat",
+        "gnss_sdr_tpu_torch.codes.galileo_e1",
+        "gnss_sdr_tpu_torch.codes._galileo_e1_data",
+        "gnss_sdr_tpu_torch.telemetry.viterbi",
+        "gnss_sdr_tpu_torch.telemetry.galileo_inav",
+        "gnss_sdr_tpu_torch.receiver.bands",
+        "gnss_sdr_tpu_torch.receiver.multiband",
+        "gnss_sdr_tpu_torch.receiver.production_multiband"}
 assert need <= set(mods), need - set(mods)
 print("ok", len(mods))
 """

@@ -217,3 +217,98 @@ def test_conditioner_wrappers_count_launches(dev):
     assert {k: LAUNCHES[k] for k in ("fir_decim", "pulse_blank",
                                      "notch_mask", "resample")} \
         == {"fir_decim": 1, "pulse_blank": 1, "notch_mask": 1, "resample": 2}
+
+
+@pytest.mark.parametrize("n_taps", [4, 6])
+def test_bank_corr_kernel_with_data_tap_matches_plain(dev, n_taps):
+    """K1 with the data-code bank appended as one more tap (3 + 1, the
+    Galileo E1 pilot's 5 + 1) over E1-length windows."""
+    from gnss_sdr_tpu_torch.kernels import bank_corr as k1
+
+    rng = np.random.default_rng(n_taps)
+    c, k, p1, w, n_eff = 2, 25, 17, 16256, 16001
+    ring = _ring(dev, 500000, n_taps)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a), device=dev)
+
+    args = (ring[0], ring[1], 321,
+            t(np.sort(rng.integers(0, 450000, (c, k))).astype(np.int32)),
+            t(rng.uniform(0, 30, (c, k)).astype(np.float32)),
+            t(rng.uniform(-0.01, 0.01, c).astype(np.float32)),
+            t(rng.standard_normal((c, p1, n_taps, w)).astype(np.float32)),
+            t(rng.integers(0, 16, (c, k)).astype(np.int32)),
+            t(rng.uniform(0, 1, (c, k)).astype(np.float32)), n_eff)
+    got = k1.bank_corr(*args)
+    want = k1.bank_corr_plain(*args)
+    for g, wv in zip(got, want):
+        torch.testing.assert_close(g, wv, rtol=0, atol=1e-4 * float(
+            torch.max(torch.abs(want[0]))))
+
+
+@pytest.mark.parametrize("n_taps", [1, 5])
+def test_multicorr_kernel_on_e1_subchip_tables(dev, n_taps):
+    """K3 at the Galileo E1 shapes: 16016-sample windows on 49104-entry
+    CBOC sub-chip tables, which take more than 48 KB of shared memory:
+    the five VEML taps (+-0.15, +-0.6 chips) and the data prompt at zero
+    shift."""
+    from gnss_sdr_tpu_torch.codes.galileo_e1 import galileo_e1_subchips
+    from gnss_sdr_tpu_torch.kernels import multicorr as k3
+    from gnss_sdr_tpu_torch.ops.correlator import n_extra_bins
+
+    rng = np.random.default_rng(40 + n_taps)
+    c, width = 3, 16016
+    ring = _ring(dev, 80000, n_taps)
+    shifts = (np.array([-7.2, -1.8, 0.0, 1.8, 7.2], np.float32)
+              if n_taps == 5 else np.zeros(1, np.float32))
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a), device=dev)
+
+    args = (ring[0], ring[1], 1000, t(np.array([0, 20000, 41000], np.int32)),
+            t(np.array([16000, 16001, 15999], np.int32)),
+            t(np.stack([galileo_e1_subchips(p, "C", True)
+                        for p in (3, 11, 24)]).astype(np.float32)),
+            t(shifts), t(rng.uniform(0, 3.0, c).astype(np.float32)),
+            t(np.full(c, 1.023e6 * 12 / 4e6, np.float32)),
+            t(rng.uniform(0, 6.2, c).astype(np.float32)),
+            t(rng.uniform(-0.02, 0.02, c).astype(np.float32)), width,
+            n_extra_bins(shifts.tolist()))
+    got = k3.multicorr(*args)
+    want = k3.multicorr_plain(*args)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-4 * float(
+            torch.max(torch.abs(want[0]))))
+
+
+def test_acq_kernels_at_e1_shapes(dev):
+    """K2 on a 4 ms Galileo E1 dwell (16000 samples, 80 Doppler bins of
+    125 Hz, CBOC replicas): the grid, its row peaks and the statistics
+    agree with the plain versions."""
+    from gnss_sdr_tpu_torch.acquisition.adapters import \
+        make_galileo_e1_acquisition
+    from gnss_sdr_tpu_torch.kernels import acq
+
+    eng = make_galileo_e1_acquisition([1, 5, 9, 30], 4e6, device=dev)
+    rng = np.random.default_rng(8)
+    n = eng.cfg.fft_size
+    x = torch.as_tensor((rng.standard_normal(n) + 1j * rng.standard_normal(n))
+                        .astype(np.complex64), device=dev)
+    dop, c0 = eng._dopplers, eng._c0
+    assert dop.shape[0] == 80 and n == 16000
+    spec = torch.fft.fft(acq.acq_wipeoff_plain(x, dop, c0), dim=-1)
+    torch.testing.assert_close(acq.acq_wipeoff(x, dop, c0),
+                               acq.acq_wipeoff_plain(x, dop, c0),
+                               rtol=1e-5, atol=1e-5)
+    prod = acq.acq_product_plain(spec, eng._code_fft)
+    torch.testing.assert_close(acq.acq_product(spec, eng._code_fft), prod,
+                               rtol=1e-5, atol=1e-3)
+    corr = torch.fft.ifft(prod, dim=-1)
+    gk, rmk, rak = acq.acq_accum(corr, None, 0, n)
+    gp, rmp, rap = acq.acq_accum_plain(corr, None, 0, n)
+    torch.testing.assert_close(gk, gp, rtol=1e-6, atol=0)
+    assert torch.equal(rak, rap)
+    sk = acq.acq_stats(gp, rmp, rap, 1, eng.cfg.samples_per_chip, True)
+    sp = acq.acq_stats_plain(gp, rmp, rap, 1, eng.cfg.samples_per_chip, True)
+    assert torch.equal(sk[1], sp[1]) and torch.equal(sk[2], sp[2])
+    torch.testing.assert_close(sk[0], sp[0], rtol=1e-4, atol=0)

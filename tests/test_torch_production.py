@@ -14,8 +14,10 @@ the JAX receiver on the scene of ``tests/test_production.py``
 """
 
 import os
+import pickle
 import textwrap
 import time
+import types
 
 import numpy as np
 import pytest
@@ -41,48 +43,68 @@ def _config_kwargs():
                 smoothing_factor=100)
 
 
-@pytest.fixture(scope="module")
-def scene(tmp_path_factory):
-    """The scene, generated once per test run: under xdist the file is
-    shared by the workers through the run's common temporary root."""
-    rx = rx_position()
-    ephs = make_constellation(range(1, 13), toe_s=TOE)
-    prns = visible_sats(ephs, rx, T_START)[:5]
-    assert len(prns) >= 5
+def _shared(tmp_path_factory, name, build):
+    """``build()``'s result, computed once per test run: under xdist the
+    first worker to get here builds and pickles it into the run's common
+    temporary root, and the others wait for the file."""
     root = tmp_path_factory.getbasetemp()
     if os.environ.get("PYTEST_XDIST_WORKER"):
         root = root.parent
-    path = root / "torch_l1_scene_31.npy"
+    path = root / name
     try:
-        # the first worker to get here generates; the others wait for it
         os.close(os.open(path.with_suffix(".lock"),
                          os.O_CREAT | os.O_EXCL | os.O_WRONLY))
     except FileExistsError:
         deadline = time.monotonic() + 300.0
         while not path.exists() and time.monotonic() < deadline:
             time.sleep(0.5)
-        return np.load(path), ephs, prns, rx, path
-    x = generate_scene(ephs, prns, rx, T_START, DURATION, FS,
-                       bits_start_tow_s=BITS_START, n_subframes=4,
-                       cn0_db_hz=48.0, seed=31)
-    tmp = path.with_name(f"{path.stem}.{os.getpid()}.npy")
-    np.save(tmp, x)
+        with open(path, "rb") as fh:
+            return pickle.load(fh)
+    value = build()
+    tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp")
+    with open(tmp, "wb") as fh:
+        pickle.dump(value, fh)
     os.replace(tmp, path)
-    return x, ephs, prns, rx, path
+    return value
 
 
 @pytest.fixture(scope="module")
-def port_run(scene):
+def scene(tmp_path_factory):
+    """The scene, generated once per test run."""
+    rx = rx_position()
+    ephs = make_constellation(range(1, 13), toe_s=TOE)
+    prns = visible_sats(ephs, rx, T_START)[:5]
+    assert len(prns) >= 5
+    x = _shared(tmp_path_factory, "torch_l1_scene_31.pkl",
+                lambda: generate_scene(ephs, prns, rx, T_START, DURATION, FS,
+                                       bits_start_tow_s=BITS_START,
+                                       n_subframes=4, cn0_db_hz=48.0,
+                                       seed=31))
+    return x, ephs, prns, rx
+
+
+@pytest.fixture(scope="module")
+def port_run(scene, tmp_path_factory):
+    """The port's production receiver over the scene, run once per test
+    run: what the tests read of it (fixes, mode, handoff, timings,
+    channel states)."""
     from gnss_sdr_tpu_torch.receiver.production import ProductionReceiver
     from gnss_sdr_tpu_torch.receiver.receiver import ReceiverConfig
 
-    x, ephs, prns, rx, _ = scene
-    rec = ProductionReceiver(ReceiverConfig(**_config_kwargs()),
-                             satellites=list(prns),
-                             assisted_ephemeris={p: ephs[p] for p in prns},
-                             device="cpu")
-    rec.run(x)
-    return rec
+    def run():
+        x, ephs, prns, _ = scene
+        rec = ProductionReceiver(ReceiverConfig(**_config_kwargs()),
+                                 satellites=list(prns),
+                                 assisted_ephemeris={p: ephs[p]
+                                                     for p in prns},
+                                 device="cpu")
+        rec.run(x)
+        return types.SimpleNamespace(
+            solutions=rec.solutions, in_fast_mode=rec.in_fast_mode,
+            handoff_sample=rec.handoff_sample, timings=rec.timings,
+            channel_states=rec.receiver.channel_states())
+
+    return _shared(tmp_path_factory, "torch_l1_port_run_31.pkl", run)
 
 
 def test_port_production_fast_phase_fix(scene, port_run):
@@ -98,7 +120,7 @@ def test_port_production_fast_phase_fix(scene, port_run):
     assert mean_err < 5.0, f"mean 3D error {mean_err} m"
     from gnss_sdr_tpu_torch.receiver.fsm import ChannelState
 
-    states = rec.receiver.channel_states()
+    states = rec.channel_states
     assert sum(s is ChannelState.TRACKING for s in states) >= 5
     assert rec.timings["phase_b_samples"] > rec.timings["phase_a_samples"]
 
@@ -107,7 +129,7 @@ def test_port_matches_jax_receiver(scene, port_run):
     from gnss_sdr_tpu.receiver import ReceiverConfig as JConfig
     from gnss_sdr_tpu.receiver.production import ProductionReceiver as JRec
 
-    x, ephs, prns, rx, _ = scene
+    x, ephs, prns, rx = scene
     jrec = JRec(JConfig(**_config_kwargs()), satellites=list(prns),
                 assisted_ephemeris={p: ephs[p] for p in prns})
     jrec.run(x)
@@ -146,7 +168,7 @@ def test_cli_production_fast_mode_fix_cpu(scene, tmp_path, capsys):
     import gnss_sdr_tpu_torch.__main__ as cli
     from gnss_sdr_tpu_torch.receiver.assistance import save_ephemeris_xml
 
-    x, ephs, prns, _, _ = scene
+    x, ephs, prns, _ = scene
     cap = tmp_path / "scene.dat"
     x[:int(8.4 * FS)].astype(np.complex64).tofile(cap)
     agnss = save_ephemeris_xml({p: ephs[p] for p in prns},
@@ -194,7 +216,7 @@ InputFilter.number_of_taps=33
 def _cond_conf(tmp_path, scene, seconds, source="File_Signal_Source"):
     from gnss_sdr_tpu_torch.receiver.assistance import save_ephemeris_xml
 
-    x, ephs, prns, _, _ = scene
+    x, ephs, prns, _ = scene
     cap = tmp_path / "if_capture.dat"
     _upsample_to_if(x[:int(seconds * FS)]).tofile(cap)
     agnss = save_ephemeris_xml({p: ephs[p] for p in prns},
@@ -271,7 +293,7 @@ def test_factory_scan_engine_and_todo_branches(tmp_path):
     cfg.set_property("Tracking_1C.implementation", "Nope")
     with pytest.raises(ValueError, match="supported"):
         make_receiver(cfg, device="cpu")
-    for key, value in (("Channels_1B.count", "4"),
+    for key, value in (("Channels_L5.count", "4"),
                        ("PVT.positioning_mode", "PPP_Static")):
         c2 = InMemoryConfiguration()
         c2.set_property(key, value)

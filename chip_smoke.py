@@ -43,9 +43,33 @@
    handoff before 4 s, K = 25 on E1, >= 6 of 8 E1 channels secondary-
    locked, >= 5 fixes, the last third's mean error under 5 m, >= 12
    satellites in the last fix, and every kernel of the path launched.
-8. Prints one ``{"kernels": [...]}`` line, one ``{"slice": ...}`` line,
-   one ``{"multiband": ...}`` line, one ``{"conditioned": ...}`` line
-   and, last, ``{"ok": true, "device": {...}}``.
+Steps 8 and 9 run right after step 6, before the slices (they generate
+and cache the scenes the slices then load):
+
+8. Acquisition variants (``acq_variants_phase``): K5a (QuickSync's
+   folding wipe-off) and K5b (CCCWSR's sign-recovery combine) against
+   their plain versions at the searches' shapes, then, through
+   ``make_acquisition`` on the card, QuickSync and Tong over PRNs 1-32
+   on the first milliseconds of the L1 scene, CCCWSR, QuickSync and Tong
+   over PRNs 1-36 on the multi-band scene (E1) and the E5a noncoherent
+   I/Q CAF search over PRNs 1-36 on a seeded 4 ms, 12 Msps capture with
+   four satellites (K2 held against its plain version there): every
+   visible satellite within 2 samples of its code delay and within the
+   JAX tests' Doppler bound, a missed one searched again a quarter
+   interval later up to 8 windows (E1 QuickSync and Tong, on E1-B
+   alone: every satellite they detect at their own threshold, at least
+   one, no absent PRN detected), every kernel of the searches launched.
+9. Loop variants (``loop_variants_phase``): K6a (KF step) and K6b
+   (Gaussian step) against their plain versions over 500 chained steps,
+   then the L1 scene's 8 PRNs pulled in on a scan engine for 1 s from
+   the truth and run to the end of the capture by three fast engines
+   (``loop="fllpll"``, ``"kf"``, ``"gaussian"``): no loss of lock, the
+   last 10 groups' mean Doppler within 5 Hz of the truth, the last C/N0
+   within 5 dB of 45 dB-Hz.
+10. Prints one ``{"kernels": [...]}`` line, one ``{"slice": ...}`` line,
+   one ``{"multiband": ...}`` line, one ``{"conditioned": ...}`` line,
+   one ``{"variants": ...}`` line and, last,
+   ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line. The script imports
 neither JAX nor the JAX package. Without CUDA, or without the package
@@ -55,6 +79,7 @@ beside it, it exits with code 1 and prints no result.
 from __future__ import annotations
 
 import argparse
+import functools
 import hashlib
 import json
 import os
@@ -76,7 +101,17 @@ TOL = {"bank_corr": 1e-4, "multicorr": 1e-3, "acq_wipeoff": 1e-4,
        # float64 sincos of two libraries can differ (an ulp of float32);
        # K7b-d do the plain version's float32 arithmetic exactly
        "fir_decim": 1e-5, "pulse_blank": 0.0, "notch_mask": 0.0,
-       "resample": 0.0}
+       "resample": 0.0,
+       # K5 relative to the plain output's peak: the same float32
+       # operations in the same order (the segments summed in order, no
+       # contraction); only the sincosf of two libraries may differ by an
+       # ulp
+       "fold_wipeoff": 1e-4, "cccwsr_combine": 1e-4,
+       # K6 over 500 chained steps, relative to each state column's scale
+       # (x) and each channel's largest |P| entry (P): the same roundings
+       # in the same order, fused multiply-adds where the plain version
+       # fuses them
+       "kf_step": 1e-5, "gaussian_step": 1e-5}
 #: kernels of the unconditioned slice (the production L1 receiver)
 SLICE_KERNELS = ("multicorr", "bank_corr", "acq_wipeoff", "acq_product",
                  "acq_accum", "acq_stats")
@@ -1036,6 +1071,10 @@ def streaming_phase(torch, np, build_dir, raw_a, prns, xml):
             *CONFIGS["A"][0], ""]))
     config = FileConfiguration(conf)
     source = make_signal_source(config)
+    # the stand-in file has no writer that could come back: its end is
+    # final, so the last read need not retry 10,000 empty reads first
+    # (on the card's machine those took 100-130 s of the phase)
+    source.read_block = functools.partial(source.read_block, max_retries=1)
     chain = RecordingConditioner(make_signal_conditioner(config))
     rec = make_receiver(config, engine="scan")
     timed_source = Timed(source, "read_block")
@@ -1545,6 +1584,659 @@ def profile_mb_phases(torch, np, rec, x):
     return out
 
 
+# ---------------------------------------------------------------------------
+# acquisition variants (K5) and the fast engine's KF / Gaussian loops (K6)
+# ---------------------------------------------------------------------------
+
+#: the seeded Galileo E5a capture of the I/Q CAF search: 4 ms at 12 Msps
+#: built as tests/test_acq_variants.py builds its one satellite, with
+#: four (PRN, code delay [samples], Doppler [Hz]) present
+E5A = dict(fs=12e6, ms=4, noise=0.9, seed=5,
+           sats=((4, 5321, 1570.0), (11, 811, -2330.0), (19, 9876, 420.0),
+                 (27, 2222, 3380.0)))
+#: the loop variants' scan-engine pull-in before the fast engines take
+#: over, and the tracking configuration of the JAX tests they mirror
+#: (test_fast_engine.py::test_kf_loop_mode_tracks)
+PULL_IN_BLOCKS = 50
+LOOP_CFG = dict(extend_correlation_symbols=20, pll_bw_narrow_hz=5.0,
+                dll_bw_narrow_hz=0.75, cn0_smoother_alpha=0.05)
+VARIANT_KERNELS = ("fold_wipeoff", "cccwsr_combine", "acq_wipeoff",
+                   "acq_product", "acq_accum", "acq_stats")
+
+
+def scene_truth(np, ephs, prns, rx, t_rx, bits_start_s, code_chips, fs):
+    """{prn: (code delay [samples] at time ``t_rx``, Doppler [Hz])} from
+    the geometry the scene generators use (light time, satellite clock
+    minus group delay, the transmit chip phase from the bit-stream
+    origin). The delay is the acquisition's: the replica's start lies
+    that many samples into the buffer."""
+    from gnss_sdr_tpu_torch.constants.general import SPEED_OF_LIGHT_M_S
+    from gnss_sdr_tpu_torch.simulate.scenario import true_range_and_rate
+
+    out = {}
+    for prn in prns:
+        eph = ephs[prn]
+        rho, rate, _ = true_range_and_rate(eph, rx, t_rx)
+        tau = rho / SPEED_OF_LIGHT_M_S
+        dts = eph.clock_bias_s(t_rx - tau) - eph.tgd_s
+        chips = (t_rx - bits_start_s - tau + dts) * 1.023e6
+        out[prn] = (float((-chips) % code_chips * fs / 1.023e6),
+                    float(-rate / SPEED_OF_LIGHT_M_S * 1575.42e6))
+    return out
+
+
+def e5a_capture(np):
+    """The E5a I/Q capture and its truth {prn: (delay, Doppler)}."""
+    from gnss_sdr_tpu_torch.codes.galileo_e5a import galileo_e5a_code
+
+    p = E5A
+    rng = np.random.default_rng(p["seed"])
+    n = int(p["fs"] * p["ms"] * 1e-3)
+    t = np.arange(n) / p["fs"]
+    x = np.zeros(n, np.complex128)
+    for prn, delay, dopp in p["sats"]:
+        ci = galileo_e5a_code(prn, "I").astype(np.float64)
+        cq = galileo_e5a_code(prn, "Q").astype(np.float64)
+        chips = np.floor((np.arange(n) - delay) * 10.23e6 / p["fs"]
+                         ).astype(np.int64)
+        x += ((ci[chips % 10230] + 1j * cq[chips % 10230]) / np.sqrt(2.0)
+              * np.exp(2j * np.pi * dopp * t))
+    x += p["noise"] * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    return x.astype(np.complex64), {prn: (float(d), f)
+                                    for prn, d, f in p["sats"]}
+
+
+def on_card(torch, np, x):
+    return torch.as_tensor(np.ascontiguousarray(x, np.complex64),
+                           device="cuda")
+
+
+def check_k5a(torch, np, eng, x, variant):
+    """K5a on the QuickSync engine's own inputs (its first coherent
+    interval of the scene)."""
+    from gnss_sdr_tpu_torch.kernels import acq_variants as k5
+
+    xs = on_card(torch, np, x[:eng.cfg.coherent_samples])
+    dop, c0, s = eng._dopplers, eng._c0, eng.folding_factor
+    got = k5.fold_wipeoff(xs, dop, c0, s)
+    want = k5.fold_wipeoff_plain(xs, dop, c0, s)
+    torch.cuda.synchronize()
+    n, d, p = xs.shape[0], dop.shape[0], len(eng.prns)
+    b, by = bound_ms(n * 8 + d * 4 + d * (n // s) * 8, d * n * 8)
+    return dict(
+        name="fold_wipeoff", route="cuda",
+        source="gnss_sdr_tpu_torch/kernels/csrc/acq_variants.cu",
+        replaces="gnss_sdr_tpu/acquisition/variants.py:34",
+        max_abs_err=float(torch.max(torch.abs(got - want))),
+        rel_err=rel_err(torch, torch.view_as_real(got),
+                        torch.view_as_real(want)),
+        tol=TOL["fold_wipeoff"],
+        ms=time_ms(torch, lambda: k5.fold_wipeoff(xs, dop, c0, s)),
+        device_us=kernel_device_us(
+            torch, lambda: k5.fold_wipeoff(xs, dop, c0, s),
+            "fold_wipeoff_kernel"),
+        event_us=event_us(torch, lambda: k5.fold_wipeoff(xs, dop, c0, s)),
+        plain_ms=time_ms(torch, lambda: k5.fold_wipeoff_plain(xs, dop, c0,
+                                                              s), 10),
+        bound_ms=b, bound_by=by, library_ms=None, variant=variant,
+        shape=f"P={p} D={d} N={n} S={s}")
+
+
+def check_k5b(torch, np, eng, x):
+    """K5b on the CCCWSR engine's own correlation grids of the scene's
+    first 4 ms (the E1-B and E1-C products through the plain K2 path)."""
+    from gnss_sdr_tpu_torch.kernels import acq
+    from gnss_sdr_tpu_torch.kernels import acq_variants as k5
+
+    xs = on_card(torch, np, x[:eng.cfg.coherent_samples])
+    spec = torch.fft.fft(acq.acq_wipeoff_plain(xs, eng._dopplers, eng._c0),
+                         dim=-1)
+    yb = torch.fft.ifft(acq.acq_product_plain(spec, eng._cb), dim=-1)
+    yc = torch.fft.ifft(acq.acq_product_plain(spec, eng._cc), dim=-1)
+    del spec
+    gk, mk, ak = k5.cccwsr_combine(yb, yc)
+    gp, mp, ap = k5.cccwsr_combine_plain(yb, yc)
+    torch.cuda.synchronize()
+    if not (torch.equal(ak, ap) and torch.equal(mk, mp)):
+        fail("cccwsr_combine row peaks differ from the plain version")
+    p, d, n = yb.shape
+    b, by = bound_ms(2 * p * d * n * 8 + p * d * n * 4 + p * d * 8,
+                     p * d * n * 12)
+    out = dict(
+        name="cccwsr_combine", route="cuda",
+        source="gnss_sdr_tpu_torch/kernels/csrc/acq_variants.cu",
+        replaces="gnss_sdr_tpu/acquisition/variants.py:135",
+        max_abs_err=float(torch.max(torch.abs(gk - gp))),
+        rel_err=rel_err(torch, gk, gp), tol=TOL["cccwsr_combine"],
+        ms=time_ms(torch, lambda: k5.cccwsr_combine(yb, yc), 20),
+        device_us=kernel_device_us(torch,
+                                   lambda: k5.cccwsr_combine(yb, yc),
+                                   "cccwsr_combine_kernel"),
+        event_us=event_us(torch, lambda: k5.cccwsr_combine(yb, yc)),
+        plain_ms=time_ms(torch, lambda: k5.cccwsr_combine_plain(yb, yc), 5),
+        bound_ms=b, bound_by=by, library_ms=None, variant="Galileo E1",
+        shape=f"P={p} D={d} N={n}")
+    del yb, yc, gk, gp
+    torch.cuda.empty_cache()
+    return out
+
+
+def judge(np, eng, res, truth, stamp, dopp_tol):
+    """Per visible PRN: positive, the delay within 2 samples of the truth
+    at ``stamp`` (circularly) and the Doppler within ``dopp_tol``; a
+    positive verdict outside them is ``wrong``."""
+    spc = eng.cfg.samples_per_code
+    rows = {}
+    for prn, (delay0, dopp) in truth.items():
+        r = res.get(prn)
+        if r is None:
+            rows[prn] = dict(ok=False, wrong=False, missing=True)
+            continue
+        want = (delay0 - stamp) % spc
+        err = abs(r.delay_samples - want)
+        err = min(err, spc - err)
+        derr = abs(r.doppler_hz - dopp)
+        near = bool(err <= 2.0 and derr <= dopp_tol)
+        rows[prn] = dict(
+            ok=bool(r.positive and near), wrong=bool(r.positive and not near),
+            delay_err=float(err), doppler_err_hz=float(derr),
+            stat=float(r.test_statistic), positive=bool(r.positive))
+    return rows
+
+
+#: acquisition windows a search may take per visible satellite: the first
+#: coherent interval, then a quarter interval later each time, over two
+#: intervals (a data symbol or secondary-code transition inside a window
+#: cancels part of its correlation: E1-B's 4 ms symbols and E1-C's CS25
+#: chips change at every code period, and a quarter interval on moves the
+#: transition towards the window's edge; later windows bring new symbols
+#: and fresh noise), as a receiver searches again on the next dwell
+SEARCH_WINDOWS = 8
+
+
+def run_search(torch, np, name, eng, x, truth, dopp_tol, tong=False,
+               require_all=True):
+    """Searches of ``eng`` on the first coherent interval of ``x`` (Tong:
+    consecutive dwells from there) with the counters read around the
+    first; each visible PRN still missed is searched again a quarter
+    interval later, up to ``SEARCH_WINDOWS`` windows.
+
+    ``require_all``: every visible PRN must be acquired (positive, within
+    2 samples and ``dopp_tol``) in one of the windows. Otherwise (the E1
+    searches on the E1-B component alone, whose statistic at the true
+    cell sits at the noise floor for satellites with a symbol transition
+    in the window) the engine's own threshold decides: no positive
+    verdict may be wrong, no absent PRN may be positive in the first
+    window, and at least one visible PRN must be acquired."""
+    from gnss_sdr_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    n = eng.cfg.coherent_samples
+    span = 4 * n if tong else n
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = eng.search(x[:span])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: LAUNCHES[k] for k in VARIANT_KERNELS if LAUNCHES[k]}
+    # the same search again, its FFT plans and code spectra warm
+    if tong:
+        eng.reset()
+    t0 = time.perf_counter()
+    eng.search(x[:span])
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    rows = judge(np, eng, res, truth, 0, dopp_tol)
+    false_alarms = [p for p, r in res.items()
+                    if p not in truth and r.positive]
+    windows = {p: 1 for p, r in rows.items() if r["ok"]}
+    wrong = [p for p, r in rows.items() if r["wrong"]]
+    later = {}
+    for w in range(1, SEARCH_WINDOWS):
+        missed = [p for p in truth if p not in windows]
+        if not missed:
+            break
+        lo = w * (n // 4)
+        if tong:
+            eng.reset()
+        got = judge(np, eng, eng.search(x[lo:lo + span], lo),
+                    {p: truth[p] for p in missed}, lo, dopp_tol)
+        for p, r in got.items():
+            later.setdefault(p, []).append(dict(r, window=w + 1))
+            if r["ok"]:
+                windows[p] = w + 1
+            wrong += [p] if r["wrong"] else []
+    missed = [p for p in truth if p not in windows]
+    detail = f"{json.dumps(rows)} / {json.dumps(later)}"
+    if require_all and missed:
+        fail(f"{name}: PRNs {missed} not acquired within 2 samples and "
+             f"{dopp_tol} Hz in {SEARCH_WINDOWS} windows: {detail}")
+    if not require_all and (wrong or false_alarms or not windows):
+        fail(f"{name}: wrong detections {wrong}, false alarms "
+             f"{false_alarms}, {len(windows)} acquired: {detail}")
+    out = dict(name=name, engine=type(eng).__name__, prns=len(eng.prns),
+               wall_s=wall, warm_wall_s=warm, launches=launches,
+               visible=rows,
+               windows_needed=windows, not_acquired=missed,
+               later_windows=later, doppler_tol_hz=dopp_tol,
+               require_all=require_all,
+               threshold=float(eng.threshold if tong
+                               else eng.cfg.calculate_threshold()))
+    print(f"chip_smoke: {name}: {len(windows)} of {len(truth)} visible "
+          f"acquired, windows {windows}, first search {wall * 1e3:.1f} ms "
+          f"(again {warm * 1e3:.1f} ms), launches {launches}",
+          file=sys.stderr, flush=True)
+    return out, launches
+
+
+def tong_threshold(np, eng, x, truth):
+    """The absolute Tong threshold, calibrated as tests/test_tong.py
+    calibrates it: on one power-normalized dwell, midway between the
+    strongest absent PRN's peak and the weakest visible PRN's peak above
+    it."""
+    import torch
+
+    eng.threshold = float("inf")
+    eng.reset()
+    eng.process_dwell(x[:eng.cfg.consumed_samples])
+    peaks = torch.amax(eng._grid_acc.reshape(len(eng.prns), -1),
+                       dim=-1).cpu().numpy()
+    eng.reset()
+    floor = max(v for p, v in zip(eng.prns, peaks) if p not in truth)
+    above = [peaks[eng.prns.index(p)] for p in truth
+             if peaks[eng.prns.index(p)] > floor]
+    if not above:
+        fail(f"Tong: no visible PRN's one-dwell peak above the absent "
+             f"PRNs' {floor}")
+    eng.threshold = 0.5 * (float(floor) + float(min(above)))
+    return eng.threshold
+
+
+def acq_variants_phase(torch, np, build_dir, card):
+    """K5a/K5b against their plain versions at the searches' shapes, then
+    the QuickSync, Tong, CCCWSR and E5a I/Q CAF engines built by
+    ``make_acquisition`` on the card, each over all PRNs of its system on
+    the first milliseconds of a scene, with the counters read around
+    each search. Returns (kernel lines, the searches' record)."""
+    from gnss_sdr_tpu_torch.acquisition.adapters import make_acquisition
+
+    t_phase = time.perf_counter()
+    fs = SCENE["fs"]
+    x, ephs, gps_prns, rx, scene_s = scene(np, build_dir)
+    t0 = scene_geometry()[3]
+    x = np.array(x[:200_000])
+    l1_truth = scene_truth(np, ephs, gps_prns, rx, t0,
+                           SCENE["bits_start_tow_s"], 1023, fs)
+    xe, gal_ephs, _, gal_prns, _, mb_scene_s = mb_scene(np, build_dir)
+    xe = np.array(xe[:200_000])
+    e1_truth = scene_truth(np, gal_ephs, gal_prns, rx, t0,
+                           MB["gal_bits_start_tow_s"], 4092, fs)
+    x5, e5_truth = e5a_capture(np)
+    kernels, searches, path = [], [], {}
+    dev = "cuda"
+
+    def tol(cfg):     # the JAX adapter test's 2/(3T) + one bin
+        return 2.0 / (3.0 * cfg.sampled_ms * 1e-3) + cfg.doppler_step
+
+    l1 = dict(fs=fs, device=dev)
+    e1 = dict(fs=fs, doppler_step=125.0, device=dev)
+    # (name, PRNs, configuration, buffer, truth, every visible required).
+    # QuickSync folds 4 ms of L1 (4 code periods) into one: at 1 ms its
+    # fold of two code halves costs 3 dB and leaves 45 dB-Hz at the noise
+    # floor (its statistic 22-35 against the noise's 22-28 on the chip);
+    # over whole periods the fold is a coherent sum. On E1, QuickSync and
+    # Tong search the E1-B component alone (half the 45 dB-Hz), QuickSync
+    # 3 dB lower still after its fold, and E1-B's symbol changes every
+    # period: there the engine's own threshold (QuickSync at pfa 0.001)
+    # decides
+    plan = [
+        ("GPS_L1_CA_PCPS_QuickSync_Acquisition", range(1, 33),
+         dict(l1, sampled_ms=4, folding_factor=4), x, l1_truth, True),
+        ("GPS_L1_CA_PCPS_Tong_Acquisition", range(1, 33), l1, x, l1_truth,
+         True),
+        ("Galileo_E1_PCPS_CCCWSR_Ambiguous_Acquisition", range(1, 37), e1,
+         xe, e1_truth, True),
+        ("Galileo_E1_PCPS_QuickSync_Ambiguous_Acquisition", range(1, 37),
+         dict(e1, pfa=0.001), xe, e1_truth, False),
+        ("Galileo_E1_PCPS_Tong_Ambiguous_Acquisition", range(1, 37), e1, xe,
+         e1_truth, False),
+        ("Galileo_E5a_Noncoherent_IQ_Acquisition_CAF", range(1, 37),
+         dict(fs=E5A["fs"], doppler_max=4000.0, doppler_step=250.0,
+              max_dwells=2, caf_window_hz=1000.0, device=dev), x5, e5_truth,
+         True),
+    ]
+    for name, prns, kw, buf, truth, require_all in plan:
+        kw = dict(kw)
+        eng = make_acquisition(name, list(prns), kw.pop("fs"), **kw)
+        tong = "Tong" in name
+        if tong:
+            tong_threshold(np, eng, buf, truth)
+        dtol = 250.0 if "E5a" in name else tol(eng.cfg)
+        rec, launches = run_search(torch, np, name, eng, buf, truth, dtol,
+                                   tong, require_all)
+        searches.append(rec)
+        for k, v in launches.items():
+            path[k] = path.get(k, 0) + v
+        if "QuickSync" in name:
+            k = check_k5a(torch, np, eng, buf,
+                          "GPS L1 C/A" if "GPS" in name else "Galileo E1")
+            k["launches"] = launches.get("fold_wipeoff", 0)
+            kernels.append(k)
+            if "GPS" in name:
+                # the registry's default L1 QuickSync (1 ms, two code
+                # halves folded), which no search here runs
+                k = check_k5a(torch, np, make_acquisition(
+                    name, list(prns), fs, device=dev), buf,
+                    "GPS L1 C/A 1 ms (registry default)")
+                k["launches"] = 0
+                kernels.append(k)
+        elif "CCCWSR" in name:
+            k = check_k5b(torch, np, eng, buf)
+            k["launches"] = launches.get("cccwsr_combine", 0)
+            kernels.append(k)
+        elif "E5a" in name:
+            n = eng.cfg.consumed_samples
+            for k in check_k2_engine(torch, np, eng._eng_i,
+                                     [on_card(torch, np, buf[:n]),
+                                      on_card(torch, np, buf[n:2 * n])],
+                                     "Galileo E5a I/Q CAF"):
+                k["launches"] = launches.get(k["name"], 0)
+                kernels.append(k)
+        del eng
+        torch.cuda.empty_cache()
+    for k in ("fold_wipeoff", "cccwsr_combine"):
+        if not path.get(k):
+            fail(f"acquisition variants: {k} never launched")
+    for k in kernels:
+        k["card"] = card
+    report(kernels)
+    return kernels, dict(searches=searches, launches=path,
+                         scenes_s=scene_s + mb_scene_s,
+                         phase_s=time.perf_counter() - t_phase, card=card)
+
+
+def col_err(torch, a, b):
+    """max |a - b| over each column's scale (b's largest magnitude)."""
+    scale = torch.clamp(torch.amax(torch.abs(b), dim=0), min=1e-30)
+    return float(torch.max(torch.abs(a - b) / scale))
+
+
+def mat_err(torch, a, b):
+    """max |a - b| over each matrix's largest |entry| of b."""
+    scale = torch.clamp(torch.amax(torch.abs(b), dim=(1, 2), keepdim=True),
+                        min=1e-30)
+    return float(torch.max(torch.abs(a - b) / scale))
+
+
+def check_k6(torch, np, rng):
+    """K6a and K6b against their plain versions over 500 chained steps of
+    8 channels (the Gaussian loop at orders 3 and 2, past its NIW and
+    Bayesian-R transients), then timed at C = 4096."""
+    from gnss_sdr_tpu_torch.kernels import loops
+    from gnss_sdr_tpu_torch.ops.gaussian import (GaussianConfig,
+                                                 gaussian_init, step_params)
+    from gnss_sdr_tpu_torch.ops.kalman import KfConfig, _matrices, kf_init
+
+    dev = torch.device("cuda")
+    t = 0.02
+    f, q, r = _matrices(KfConfig(), t)
+
+    def noise(c, sigma, lo=None, hi=None):
+        v = rng.uniform(lo, hi, c) if lo is not None \
+            else rng.normal(0, sigma, c)
+        return torch.as_tensor(v.astype(np.float32), device=dev)
+
+    def kf_states(c):
+        s = kf_init(rng.normal(size=c), rng.uniform(0, 6, c),
+                    rng.uniform(-4000, 4000, c), device=dev)
+        return (s.x, s.p)
+
+    kf_in = [(noise(8, 0.05), noise(8, 0.2)) for _ in range(500)]
+    k = p = kf_states(8)
+    for ce, pe in kf_in:
+        k = loops.kf_step(k[0], k[1], ce, pe, f, q, r)[:2]
+        p = loops.kf_step_plain(p[0], p[1], ce, pe, f, q, r)[:2]
+    torch.cuda.synchronize()
+    kf_err = max(col_err(torch, k[0], p[0]), mat_err(torch, k[1], p[1]))
+    gs_err, gs_abs = {}, 0.0
+    for order in (3, 2):
+        prm = step_params(GaussianConfig(order=order), t)
+        s = gaussian_init(rng.uniform(-4000, 4000, 8),
+                          GaussianConfig(order=order), t, device=dev)
+        gk = gp = tuple(s)
+        for _ in range(500):
+            y, cn0 = noise(8, 0.2), noise(8, None, 35.0, 50.0)
+            *gk, ik = loops.gaussian_step(*gk, y, cn0, prm)
+            *gp, ip = loops.gaussian_step_plain(*gp, y, cn0, prm)
+        torch.cuda.synchronize()
+        if not (torch.equal(gk[2], gp[2]) and torch.equal(gk[3], gp[3])):
+            fail(f"gaussian_step (order {order}) NIW counters differ")
+        gs_abs = max(gs_abs, float(torch.max(torch.abs(gk[0] - gp[0]))))
+        gs_err[order] = max(col_err(torch, gk[0], gp[0]),
+                            mat_err(torch, gk[1], gp[1]),
+                            col_err(torch, gk[4][:, None], gp[4][:, None]),
+                            col_err(torch, gk[5][:, None], gp[5][:, None]),
+                            col_err(torch, ik.T, ip.T))
+    c = 4096
+    xk, pk = kf_states(c)
+    ce, pe = noise(c, 0.05), noise(c, 0.2)
+    b, by = bound_ms(c * (16 + 64 + 8) + c * (16 + 64 + 16), c * 420)
+    kf_row = dict(
+        name="kf_step", route="cuda",
+        source="gnss_sdr_tpu_torch/kernels/csrc/loops.cu",
+        replaces="gnss_sdr_tpu/ops/kalman.py:77",
+        max_abs_err=float(torch.max(torch.abs(k[0] - p[0]))),
+        rel_err=kf_err, tol=TOL["kf_step"],
+        ms=time_ms(torch, lambda: loops.kf_step(xk, pk, ce, pe, f, q, r)),
+        device_us=kernel_device_us(
+            torch, lambda: loops.kf_step(xk, pk, ce, pe, f, q, r),
+            "kf_step_kernel"),
+        event_us=event_us(torch,
+                          lambda: loops.kf_step(xk, pk, ce, pe, f, q, r)),
+        plain_ms=time_ms(torch, lambda: loops.kf_step_plain(
+            xk, pk, ce, pe, f, q, r), 20),
+        bound_ms=b, bound_by=by, library_ms=None,
+        variant="500 chained steps at C=8; timed at C=4096",
+        shape=f"C={c} n=4")
+    prm = step_params(GaussianConfig(), t)
+    gs = tuple(gaussian_init(rng.uniform(-4000, 4000, c), GaussianConfig(),
+                             t, device=dev))
+    y, cn0 = noise(c, 0.2), noise(c, None, 35.0, 50.0)
+    b, by = bound_ms(c * (12 + 36 + 16 + 8) + c * (12 + 36 + 16 + 16),
+                     c * 200)
+    gs_row = dict(
+        name="gaussian_step", route="cuda",
+        source="gnss_sdr_tpu_torch/kernels/csrc/loops.cu",
+        replaces="gnss_sdr_tpu/ops/gaussian.py:114",
+        max_abs_err=gs_abs, rel_err=max(gs_err.values()),
+        rel_err_by_order=gs_err, tol=TOL["gaussian_step"],
+        ms=time_ms(torch, lambda: loops.gaussian_step(*gs, y, cn0, prm)),
+        device_us=kernel_device_us(
+            torch, lambda: loops.gaussian_step(*gs, y, cn0, prm),
+            "gaussian_step_kernel"),
+        event_us=event_us(torch,
+                          lambda: loops.gaussian_step(*gs, y, cn0, prm)),
+        plain_ms=time_ms(torch, lambda: loops.gaussian_step_plain(
+            *gs, y, cn0, prm), 20),
+        bound_ms=b, bound_by=by, library_ms=None,
+        variant="500 chained steps at C=8, orders 3 and 2; timed at "
+        "C=4096, order 3", shape=f"C={c} n=3")
+    return [kf_row, gs_row]
+
+
+def periods_into_bit(np, ephs, prns, rx, t0, bits0, fs, starts):
+    """Per channel, how many code periods of the current data bit the
+    truth puts before the period starting at absolute sample
+    ``starts[ch]`` (the scenes' periods start at whole milliseconds of
+    transmit time, their bits at whole 20 ms from ``bits0``)."""
+    from gnss_sdr_tpu_torch.constants.general import SPEED_OF_LIGHT_M_S
+    from gnss_sdr_tpu_torch.simulate.scenario import true_range_and_rate
+
+    out = []
+    for prn, s in zip(prns, starts):
+        t_rx = t0 + s / fs
+        rho, _, _ = true_range_and_rate(ephs[prn], rx, t_rx)
+        tau = rho / SPEED_OF_LIGHT_M_S
+        dts = ephs[prn].clock_bias_s(t_rx - tau) - ephs[prn].tgd_s
+        out.append(int(round((t_rx - bits0 - tau + dts) * 1000.0)) % 20)
+    return out
+
+
+def align_to_bits(np, torch, fast, ts, into_bit):
+    """The fast engine's state from the scan engine's, every channel's
+    next group moved to its next data-bit boundary (as the production
+    receiver's handoff does, ``receiver/production.py::_handoff``);
+    ``into_bit(starts)`` gives the periods of the current bit before the
+    channels' next periods."""
+    cfg = fast.cfg
+    state = fast.from_track_state(ts)
+    k = cfg.extend_correlation_symbols
+    offs = state.offset.cpu().numpy().astype(np.int64)
+    rems = state.rem_code_phase_samples.cpu().numpy().astype(np.float64)
+    rcarr = state.rem_carr_phase_rad.cpu().numpy().astype(np.float64)
+    steps = 2.0 * np.pi * state.carrier_doppler_hz.cpu().numpy() / cfg.fs
+    code_freq = cfg.chip_rate_cps \
+        + state.code_doppler_chips.cpu().numpy().astype(np.float64)
+    into = into_bit(offs + rems)
+    for ch in range(len(into)):
+        skip = (k - into[ch]) % k
+        t_prn = cfg.fs * cfg.code_length_chips / code_freq[ch]
+        old = offs[ch] + rems[ch]
+        boundary = old + skip * t_prn
+        offs[ch] = int(np.floor(boundary))
+        rems[ch] = boundary - offs[ch]
+        rcarr[ch] = np.fmod(rcarr[ch] + steps[ch] * (boundary - old),
+                            2.0 * np.pi)
+    dev = state.offset.device
+    return state._replace(
+        offset=torch.as_tensor(offs.astype(np.int32), device=dev),
+        rem_code_phase_samples=torch.as_tensor(rems.astype(np.float32),
+                                               device=dev),
+        rem_carr_phase_rad=torch.as_tensor(rcarr.astype(np.float32),
+                                           device=dev))
+
+
+def loop_variants_phase(torch, np, build_dir, card):
+    """K6a/K6b against their plain versions, then the loop variants on
+    the slice's scene: the 8 visible PRNs started on a scan engine from
+    the scene's truth (Doppler + 25 Hz, as test_kf_loop_mode_tracks
+    starts its channel), pulled in and bit-synced over 1 s, then three
+    ``FastTrackingEngine``s (``fllpll``, ``kf``, ``gaussian``; C = 8,
+    K = 20, 5 groups a block) run the rest of the capture from that one
+    state through ``superblock_ring_i8``, with the counters read around
+    each run. The groups start at the data-bit boundaries the scene's
+    truth gives (the first second of this scene carries too few bit
+    transitions for the receiver's bit synchronizer). Returns (kernel
+    lines, the loops' record)."""
+    from gnss_sdr_tpu_torch.codes import gps_l1ca_code
+    from gnss_sdr_tpu_torch.kernels import LAUNCHES, reset_launches
+    from gnss_sdr_tpu_torch.native import complex_to_quantized_i8
+    from gnss_sdr_tpu_torch.tracking.channels import TrackingChannels
+    from gnss_sdr_tpu_torch.tracking.engine import TrackingConfig
+    from gnss_sdr_tpu_torch.tracking.fast_engine import FastTrackingEngine
+
+    t_phase = time.perf_counter()
+    kernels = check_k6(torch, np, np.random.default_rng(2026))
+    fs = SCENE["fs"]
+    x, ephs, prns, rx, _ = scene(np, build_dir)
+    t0 = scene_geometry()[3]
+    bits0 = SCENE["bits_start_tow_s"]
+    truth = scene_truth(np, ephs, prns, rx, t0, bits0, 1023, fs)
+    cfg = TrackingConfig(fs=fs, **LOOP_CFG)
+    block = int(fs * 0.02)
+    c = len(prns)
+    tc = TrackingChannels(cfg, c, block, device="cuda")
+    for ch, prn in enumerate(prns):
+        delay, dopp = truth[prn]
+        tc.start_channel(ch, prn, gps_l1ca_code(prn), delay, dopp + 25.0, 0)
+    t_a = time.perf_counter()
+    for b in range(PULL_IN_BLOCKS):
+        outs = tc.process_block(x[b * block:(b + 1) * block + tc.overlap])
+        for ch, periods in enumerate(outs):
+            for p in periods:
+                if p.loss_of_lock:
+                    fail(f"loop variants: PRN {prns[ch]} lost lock in the "
+                         "pull-in")
+    pull_s = time.perf_counter() - t_a
+    head = np.ascontiguousarray(x[:1 << 20].real, np.float32)
+    ring = complex_to_quantized_i8(
+        x, 16.0 / (float(np.sqrt(np.mean(head * head))) * np.sqrt(2.0)),
+        "cuda")
+    base0 = tc.abs_block_start
+
+    def into_bit(starts):
+        return periods_into_bit(np, ephs, prns, rx, t0, bits0, fs,
+                                base0 + starts)
+
+    k = cfg.extend_correlation_symbols
+    runs = {}
+    for loop in ("fllpll", "kf", "gaussian"):
+        fast = FastTrackingEngine(cfg, c, 5, loop=loop, device="cuda")
+        state = align_to_bits(np, torch, fast, tc.state, into_bit)
+        bank = fast.get_bank(tc._code_tables_dev)
+        n_blocks = (ring.shape[1] - base0 - fast.overlap) \
+            // fast.block_samples
+        torch.cuda.synchronize()
+        reset_launches()
+        t_b = time.perf_counter()
+        packed = []
+        for b0 in range(0, n_blocks, 10):
+            nb = min(10, n_blocks - b0)
+            state, out = fast.superblock_ring_i8(
+                state, ring, base0 + b0 * fast.block_samples, nb, bank)
+            packed.append(out["packed"])
+        packed = torch.cat(packed).cpu().numpy()
+        wall = time.perf_counter() - t_b
+        launches = {n: v for n, v in LAUNCHES.items() if v}
+        need = ["bank_corr"] + {"kf": ["kf_step"],
+                                "gaussian": ["gaussian_step"]}.get(loop, [])
+        missing = [n for n in need if not launches.get(n)]
+        if missing:
+            fail(f"loop {loop}: kernels never launched: {missing}")
+        rows = packed.reshape(-1, c, 5 * k + 4)
+        valid = rows[:, :, 5 * k + 2] > 0.5
+        if (rows[:, :, 5 * k + 3] > 0.5).any():
+            lost = [prns[ch] for ch in range(c)
+                    if (rows[:, ch, 5 * k + 3] > 0.5).any()]
+            fail(f"loop {loop}: PRNs {lost} lost lock")
+        t_end = t0 + (base0 + n_blocks * fast.block_samples) / fs
+        late = scene_truth(np, ephs, prns, rx, t_end - 0.1, bits0, 1023, fs)
+        chans = {}
+        for ch, prn in enumerate(prns):
+            d = rows[valid[:, ch], ch, 5 * k]
+            cn0 = rows[valid[:, ch], ch, 5 * k + 1]
+            if len(d) < 10:
+                fail(f"loop {loop}: PRN {prn} has {len(d)} valid groups")
+            derr = float(np.mean(d[-10:]) - late[prn][1])
+            chans[prn] = dict(doppler_err_hz=derr, cn0_db_hz=float(cn0[-1]),
+                              groups=int(len(d)))
+            if not abs(derr) < 5.0:
+                fail(f"loop {loop}: PRN {prn} Doppler {derr} Hz off the "
+                     "truth over its last 10 groups")
+            if not abs(cn0[-1] - SCENE["cn0_db_hz"]) < 5.0:
+                fail(f"loop {loop}: PRN {prn} C/N0 {cn0[-1]} dB-Hz")
+        signal_s = n_blocks * fast.block_samples / fs
+        runs[loop] = dict(wall_s=wall, signal_s=signal_s,
+                          rtf_phase_b=signal_s / wall, launches=launches,
+                          channels=chans)
+        print(f"chip_smoke: loop {loop}: {signal_s:.1f} s of signal in "
+              f"{wall:.2f} s ({signal_s / wall:.2f}x real time), worst "
+              f"Doppler error "
+              f"{max(abs(v['doppler_err_hz']) for v in chans.values()):.3f}"
+              f" Hz, launches {launches}", file=sys.stderr, flush=True)
+        kname = {"kf": "kf_step", "gaussian": "gaussian_step"}.get(loop)
+        for kr in kernels:
+            if kr["name"] == kname:
+                kr["launches"] = launches.get(kname, 0)
+    del ring
+    for kr in kernels:
+        kr["card"] = card
+    report(kernels)
+    return kernels, dict(pull_in_s=pull_s, pull_in_blocks=PULL_IN_BLOCKS,
+                         prns=prns, handoff_sample=base0, runs=runs,
+                         phase_s=time.perf_counter() - t_phase, card=card)
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
     sys.path.insert(0, ROOT)
@@ -1576,6 +2268,11 @@ def main() -> int:
 
     res = kernel_phase(torch, np, scene_geometry()[1])
     e1_res = e1_kernel_phase(torch, np, mb_geometry()[1])
+    # the variant phases before the slices: torch.profiler records no
+    # device time after the slices' profiled superblocks (on that card's
+    # machine); they generate and cache the scenes the slices then load
+    k5_res, acq_var = acq_variants_phase(torch, np, kbuild.BUILD_DIR, card)
+    k6_res, loop_var = loop_variants_phase(torch, np, kbuild.BUILD_DIR, card)
     slice_res, launches = slice_phase(torch, np, kbuild.BUILD_DIR, card)
     mb_res, mb_launches = multiband_phase(torch, np, kbuild.BUILD_DIR, card)
     # each kernel line's launches: the run of the path whose shapes it
@@ -1596,11 +2293,13 @@ def main() -> int:
     for r in res + e1_res:
         r["card"] = card
     k7_res, cond_res = conditioned_phase(torch, np, kbuild.BUILD_DIR, card)
-    print(json.dumps({"kernels": res + e1_res + k7_res,
+    print(json.dumps({"kernels": res + e1_res + k7_res + k5_res + k6_res,
                       "build_s": build_s}), flush=True)
     print(json.dumps({"slice": slice_res}), flush=True)
     print(json.dumps({"multiband": mb_res}), flush=True)
     print(json.dumps({"conditioned": cond_res}), flush=True)
+    print(json.dumps({"variants": {"acquisition": acq_var,
+                                   "loops": loop_var}}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,12 +1,12 @@
-"""Per-signal acquisition factories, GPS L1 C/A and Galileo E1 part.
+"""Per-signal acquisition factories.
 
-Port of ``gnss_sdr_tpu/acquisition/adapters.py`` for the two signals the
-port receives: sampled PRN replicas and the PCPS engine configured from a
-``Configuration`` role section (Acq_Conf::SetFromConfiguration
-semantics), the per-signal replica catalogue (``1C``, ``1B``) and the
-implementation-name registry. Every name of the registry is known; the
-QuickSync, Tong, CCCWSR and E5a IQ-CAF variants (K5) and the replicas of
-the other signals raise ``NotImplementedError`` naming their ROADMAP step.
+Port of ``gnss_sdr_tpu/acquisition/adapters.py``: sampled PRN replicas
+and the acquisition engines configured from a ``Configuration`` role
+section (Acq_Conf::SetFromConfiguration semantics), the per-signal
+replica catalogue and the implementation-name registry, whose every name
+:func:`make_acquisition` builds: PCPS, Tong, QuickSync, CCCWSR and the
+E5a noncoherent I/Q CAF engine. The receiver bands themselves exist for
+``1C`` and ``1B`` only (``receiver/bands.py``).
 """
 
 from __future__ import annotations
@@ -19,21 +19,10 @@ from gnss_sdr_tpu_torch.codes.sampling import sample_code_floor
 from gnss_sdr_tpu_torch.config import Configuration
 from gnss_sdr_tpu_torch.constants import get_signal
 
-#: signals whose replicas the port generates
-PORTED_SUFFIXES = ("1C", "1B")
-
-
-def _todo_suffix(suffix: str):
-    return NotImplementedError(
-        f"signal {suffix!r}: only GPS L1 C/A (1C) and Galileo E1 (1B) are "
-        "ported (ROADMAP queue 1, step 8, the remaining bands)")
-
 
 def acq_config_from(config: Configuration, role: str, fs: float,
                     signal_suffix: str = "1C") -> AcqConfig:
     """Read ``role.*`` keys into an AcqConfig (acq_conf.cc defaults)."""
-    if signal_suffix not in PORTED_SUFFIXES:
-        raise _todo_suffix(signal_suffix)
     sig = get_signal(signal_suffix)
     samples_per_code = sig.samples_per_code(fs)
     return AcqConfig(
@@ -145,19 +134,56 @@ def make_gps_l1ca_acquisition(prns, fs: float,
 
 def signal_replicas(suffix: str, prns, fs: float, sampled_ms: int = 0,
                     component: str | None = None) -> dict[int, np.ndarray]:
-    """Sampled complex acquisition replicas of a ported signal, tiled to
-    ``sampled_ms``."""
-    if suffix not in PORTED_SUFFIXES:
-        raise _todo_suffix(suffix)
+    """Sampled complex acquisition replicas for any supported signal,
+    tiled to ``sampled_ms``; ``component`` picks the E1 B/C, the E5a,
+    E5b and L5 I/Q and the E6 B/C codes.
+
+    The per-signal chip sources mirror the reference adapters'
+    *_code_gen_complex_sampled calls (src/algorithms/acquisition/
+    adapters/). GLONASS FDMA slots all share the single m-sequence; the
+    per-slot carrier offset is a Doppler center, not part of the code.
+    """
+    from gnss_sdr_tpu_torch.codes.beidou_b1i import beidou_b1i_code
+    from gnss_sdr_tpu_torch.codes.beidou_b3i import beidou_b3i_code
+    from gnss_sdr_tpu_torch.codes.galileo_e5a import galileo_e5a_code
+    from gnss_sdr_tpu_torch.codes.galileo_e5b_e6 import (galileo_e5b_code,
+                                                         galileo_e6_code)
+    from gnss_sdr_tpu_torch.codes.glonass_l1ca import glonass_l1ca_code
+    from gnss_sdr_tpu_torch.codes.gps_l2c import gps_l2cm_code
+    from gnss_sdr_tpu_torch.codes.gps_l5 import gps_l5i_code, gps_l5q_code
+
     sig = get_signal(suffix)
     sampled_ms = sampled_ms or int(round(sig.code_period_ms))
     periods = max(1, int(round(sampled_ms / sig.code_period_ms)))
+
+    def chips_for(prn: int) -> np.ndarray:
+        if suffix == "1C":
+            return gps_l1ca_code(prn)
+        if suffix == "2S":
+            return gps_l2cm_code(prn)
+        if suffix == "L5":
+            return (gps_l5q_code(prn) if component == "Q"
+                    else gps_l5i_code(prn))
+        if suffix == "5X":
+            return galileo_e5a_code(prn, component or "I")
+        if suffix == "7X":
+            return galileo_e5b_code(prn, component or "I")
+        if suffix == "E6":
+            return galileo_e6_code(prn, component or "B")
+        if suffix in ("1G", "2G"):
+            return glonass_l1ca_code()
+        if suffix == "B1":
+            return beidou_b1i_code(prn)
+        if suffix == "B3":
+            return beidou_b3i_code(prn)
+        raise ValueError(f"no acquisition replica source for {suffix!r}")
+
     if suffix == "1B":
         one = galileo_e1_replicas(prns, fs, component or "B", cboc=True)
         return {prn: np.tile(code, periods) for prn, code in one.items()}
     out = {}
     for prn in prns:
-        one = sample_code_floor(gps_l1ca_code(prn), fs,
+        one = sample_code_floor(chips_for(prn), fs,
                                 sig.chip_rate_cps).astype(np.complex64)
         out[prn] = np.tile(one, periods)
     return out
@@ -175,13 +201,6 @@ def make_acquisition(implementation: str, prns, fs: float,
             f"Unknown acquisition implementation {implementation!r}; "
             f"known: {sorted(ACQ_IMPLEMENTATIONS)}")
     suffix, variant, defaults = spec
-    if variant != "pcps":
-        raise NotImplementedError(
-            f"{implementation} ({variant}, K5) is not ported to "
-            "gnss_sdr_tpu_torch yet (ROADMAP queue 1, step 10, the "
-            "acquisition variants)")
-    if suffix not in PORTED_SUFFIXES:
-        raise _todo_suffix(suffix)
     role = role or f"Acquisition_{suffix}"
     if config is not None:
         cfg = acq_config_from(config, role, fs, suffix)
@@ -193,9 +212,40 @@ def make_acquisition(implementation: str, prns, fs: float,
             ms_per_code=int(round(sig.code_period_ms)),
             sampled_ms=int(round(sig.code_period_ms)),
         )
-    for key, value in {**defaults, **overrides}.items():
+    merged = {**defaults, **overrides}
+    caf_window_hz = merged.pop("caf_window_hz", 0.0)
+    both_components = merged.pop("both_signal_components", True)
+    for key, value in merged.items():
         setattr(cfg, key, value)
+    if variant == "cccwsr":
+        from gnss_sdr_tpu_torch.acquisition.variants import CccwsrAcquisition
+
+        data = signal_replicas(suffix, prns, fs, cfg.sampled_ms, "B")
+        pilot = signal_replicas(suffix, prns, fs, cfg.sampled_ms, "C")
+        return CccwsrAcquisition(cfg, data, pilot, device=device)
+    if variant == "nciq_caf":
+        from gnss_sdr_tpu_torch.acquisition.variants import \
+            NoncoherentIQCafAcquisition
+
+        data = signal_replicas(suffix, prns, fs, cfg.sampled_ms, "I")
+        pilot = signal_replicas(suffix, prns, fs, cfg.sampled_ms, "Q")
+        return NoncoherentIQCafAcquisition(
+            cfg, data, pilot, both_signal_components=bool(both_components),
+            caf_window_hz=float(caf_window_hz), device=device)
     codes = signal_replicas(suffix, prns, fs, cfg.sampled_ms)
+    if variant == "quicksync":
+        from gnss_sdr_tpu_torch.acquisition.variants import \
+            QuickSyncAcquisition
+
+        folding = (config.property(f"{role}.folding_factor", 2)
+                   if config is not None
+                   else overrides.get("folding_factor", 2))
+        return QuickSyncAcquisition(cfg, codes, folding_factor=int(folding),
+                                    device=device)
+    if variant == "tong":
+        from gnss_sdr_tpu_torch.acquisition.tong import TongAcquisition
+
+        return TongAcquisition(cfg, codes, device=device)
     return PcpsAcquisition(cfg, codes, device=device)
 
 

@@ -125,6 +125,19 @@ class AcqConfig:
         return float(2.0 * sp_special.gammaincinv(2.0 * dwells_eff, q))
 
 
+def host_stats(grid, row_max, row_arg, num_dwells: int,
+               samples_per_chip: int, use_cfar: bool):
+    """K2's per-PRN statistics of a [P, D, eff] grid and its row peaks,
+    read to the host in one copy: (stat float32, index_doppler int64,
+    index_time int64) numpy [P]."""
+    stat, i_dop, i_time = acq_stats(grid, row_max, row_arg, num_dwells,
+                                    samples_per_chip, use_cfar)
+    both = torch.stack([stat.to(torch.float64), i_dop.to(torch.float64),
+                        i_time.to(torch.float64)]).cpu().numpy()
+    return (both[0].astype(np.float32), both[1].astype(np.int64),
+            both[2].astype(np.int64))
+
+
 @dataclasses.dataclass
 class AcqResult:
     """Per-satellite acquisition verdict (fills GnssSynchro Acq_* fields)."""
@@ -191,13 +204,8 @@ class PcpsAcquisition:
 
     def _stats(self, grid, row_max, row_arg, num_dwells: int):
         """(stat, index_doppler, index_time) on the host: one copy."""
-        stat, i_dop, i_time = acq_stats(grid, row_max, row_arg, num_dwells,
-                                        self._samples_per_chip,
-                                        self.cfg.use_cfar)
-        both = torch.stack([stat.to(torch.float64), i_dop.to(torch.float64),
-                            i_time.to(torch.float64)]).cpu().numpy()
-        return (both[0].astype(np.float32), both[1].astype(np.int64),
-                both[2].astype(np.int64))
+        return host_stats(grid, row_max, row_arg, num_dwells,
+                          self._samples_per_chip, self.cfg.use_cfar)
 
     def _make_result(self, prn, positive, stat, threshold, i_time,
                      doppler_hz, doppler_step, samplestamp,

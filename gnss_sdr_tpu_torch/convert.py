@@ -15,6 +15,8 @@ import numpy as np
 import torch
 
 from gnss_sdr_tpu_torch.device import resolve_device
+from gnss_sdr_tpu_torch.ops.gaussian import GaussState
+from gnss_sdr_tpu_torch.ops.kalman import KfState
 from gnss_sdr_tpu_torch.tracking.engine import TrackState
 from gnss_sdr_tpu_torch.tracking.fast_engine import FastState
 
@@ -49,10 +51,20 @@ def track_state(fields, device="cuda") -> TrackState:
 
 def fast_state(fields, device="cuda") -> FastState:
     """Fast-engine state from a ``FastState`` field dict, the secondary
-    wipe-off fields (``sec_signs``, ``sec_len``, ``sec_phase``,
-    ``secondary_locked``) included; the KF and Gaussian loop carries of
-    the JAX state are dropped."""
+    wipe-off fields and the KF / Gaussian loop carries (``kf_x``,
+    ``kf_p``, ``gs_niw``) included."""
     return _state(FastState, field_dict(fields), device)
+
+
+def kf_state(fields, device="cuda") -> KfState:
+    """KF loop state from a ``gnss_sdr_tpu.ops.kalman.KfState``."""
+    return _state(KfState, field_dict(fields), device)
+
+
+def gauss_state(fields, device="cuda") -> GaussState:
+    """Gaussian loop state from a ``gnss_sdr_tpu.ops.gaussian.GaussState``
+    (int32 NIW counters, float32 the rest)."""
+    return _state(GaussState, field_dict(fields), device)
 
 
 def state_numpy(state) -> dict[str, np.ndarray]:

@@ -24,6 +24,10 @@ LAUNCHES: dict[str, int] = {
     "pulse_blank": 0,   # K7b: pulse blanking
     "notch_mask": 0,    # K7c: frequency-domain notch around the FFTs
     "resample": 0,      # K7d: Mmse / Direct resampler
+    "fold_wipeoff": 0,  # K5a: QuickSync wipe-off + S-fold into the FFT input
+    "cccwsr_combine": 0,  # K5b: max(|yB+yC|^2, |yB-yC|^2) + row peaks
+    "kf_step": 0,       # K6a: fast-engine KF loop step
+    "gaussian_step": 0,  # K6b: fast-engine Gaussian loop step
 }
 
 

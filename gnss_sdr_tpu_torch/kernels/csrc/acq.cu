@@ -55,40 +55,6 @@ __global__ void product_kernel(const float2* __restrict__ spec,
                        __fadd_rn(__fmul_rn(a.x, b.y), __fmul_rn(a.y, b.x)));
 }
 
-// (value, index) max with the first index winning ties
-__device__ __forceinline__ void take_max(float& v, int& i, float v2, int i2) {
-  if (v2 > v || (v2 == v && i2 < i)) {
-    v = v2;
-    i = i2;
-  }
-}
-
-__device__ void block_argmax(float& v, int& i, float* sv, int* si) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n_warps = (blockDim.x + 31) >> 5;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float v2 = __shfl_down_sync(0xffffffffu, v, off);
-    const int i2 = __shfl_down_sync(0xffffffffu, i, off);
-    take_max(v, i, v2, i2);
-  }
-  if (lane == 0) {
-    sv[warp] = v;
-    si[warp] = i;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < n_warps ? sv[lane] : -CUDART_INF_F;
-    i = lane < n_warps ? si[lane] : 0x7fffffff;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float v2 = __shfl_down_sync(0xffffffffu, v, off);
-      const int i2 = __shfl_down_sync(0xffffffffu, i, off);
-      take_max(v, i, v2, i2);
-    }
-  }
-}
-
 // one block per (p, d) row
 __global__ void __launch_bounds__(kThreads)
 accum_kernel(const float2* __restrict__ corr, int N, int offset, int eff,

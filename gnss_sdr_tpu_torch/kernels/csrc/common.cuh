@@ -51,3 +51,37 @@ __device__ __forceinline__ void derotate(float xr, float xi, float phase,
   out_re = __fadd_rn(__fmul_rn(xr, c), __fmul_rn(xi, s));
   out_im = __fsub_rn(__fmul_rn(xi, c), __fmul_rn(xr, s));
 }
+
+// (value, index) max with the first index winning ties (jnp.argmax's rule)
+__device__ __forceinline__ void take_max(float& v, int& i, float v2, int i2) {
+  if (v2 > v || (v2 == v && i2 < i)) {
+    v = v2;
+    i = i2;
+  }
+}
+
+__device__ inline void block_argmax(float& v, int& i, float* sv, int* si) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_warps = (blockDim.x + 31) >> 5;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float v2 = __shfl_down_sync(0xffffffffu, v, off);
+    const int i2 = __shfl_down_sync(0xffffffffu, i, off);
+    take_max(v, i, v2, i2);
+  }
+  if (lane == 0) {
+    sv[warp] = v;
+    si[warp] = i;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    v = lane < n_warps ? sv[lane] : -CUDART_INF_F;
+    i = lane < n_warps ? si[lane] : 0x7fffffff;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float v2 = __shfl_down_sync(0xffffffffu, v, off);
+      const int i2 = __shfl_down_sync(0xffffffffu, i, off);
+      take_max(v, i, v2, i2);
+    }
+  }
+}

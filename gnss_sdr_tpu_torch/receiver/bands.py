@@ -30,6 +30,8 @@ from gnss_sdr_tpu_torch.telemetry.gps_lnav import GpsLnavDecoder
 from gnss_sdr_tpu_torch.tracking.channels import TrackingChannels
 from gnss_sdr_tpu_torch.tracking.engine import TrackingConfig
 
+#: the bands the port builds
+PORTED_SUFFIXES = ("1C", "1B")
 #: suffix -> the ROADMAP step that ports it
 _TODO_BANDS = {
     "L5": "step 8b, the L5/E5a/E5b/E6 pilots",

@@ -16,8 +16,8 @@ item.
 
 from __future__ import annotations
 
-from gnss_sdr_tpu_torch.acquisition.adapters import PORTED_SUFFIXES
 from gnss_sdr_tpu_torch.config import Configuration
+from gnss_sdr_tpu_torch.receiver.bands import PORTED_SUFFIXES
 from gnss_sdr_tpu_torch.receiver.receiver import Receiver, ReceiverConfig
 from gnss_sdr_tpu_torch.sources.file_source import FileSignalSource
 

@@ -1,8 +1,10 @@
 """Fast steady-state tracking engine: group-batched correlation.
 
 Port of ``gnss_sdr_tpu/tracking/fast_engine.py`` with the code-bank
-correlator and the FLL/PLL loop (``correlator="bank"``,
-``loop="fllpll"``): the production steady state of GPS L1 C/A (K = 20)
+correlator and its three loops: the FLL/PLL loop (``loop="fllpll"``),
+the 4-state code/carrier KF (``loop="kf"``, the K6a kernel) and the
+Gaussian carrier KF with the DLL filter (``loop="gaussian"``, K6b). The
+default serves the production steady state of GPS L1 C/A (K = 20)
 and of Galileo E1, on its E1-C pilot with the CS25 secondary wiped off
 (K = 25, VEML, the E1-B data bank) or on E1-B alone (K = 1, VEML). In
 extended coherent integration the loops close once per K-period group,
@@ -14,8 +16,9 @@ closed-form period boundaries
 
 after which :meth:`FastTrackingEngine._close_loops` wipes off the
 secondary code and runs the same loop arithmetic as the scan engine's
-extended mode in PyTorch. The data-component code of a pilot-tracked
-channel rides in the same launch as one more bank tap.
+extended mode in PyTorch (the KF and Gaussian steps in their kernels).
+The data-component code of a pilot-tracked channel rides in the same
+launch as one more bank tap.
 """
 
 from __future__ import annotations
@@ -31,17 +34,18 @@ from gnss_sdr_tpu_torch.kernels.bank_corr import bank_corr
 from gnss_sdr_tpu_torch.ops import discriminators as disc
 from gnss_sdr_tpu_torch.ops import lock_detectors as lockdet
 from gnss_sdr_tpu_torch.ops import loop_filters as lf
+from gnss_sdr_tpu_torch.ops.gaussian import (GaussianConfig, GaussState,
+                                             _p_ini, gaussian_step,
+                                             phase_detector_variance)
+from gnss_sdr_tpu_torch.ops.kalman import KfConfig, KfState, kf_step
 from gnss_sdr_tpu_torch.tracking.engine import (TWO_PI, TWO_PI_F32, F32,
                                                 TrackingConfig, TrackState,
                                                 f32, select, set_channel)
 
 
 class FastState(NamedTuple):
-    """Per-channel carry of the group engine ([C] leading dim).
-
-    The fields of ``gnss_sdr_tpu.tracking.fast_engine.FastState`` except
-    the KF / Gaussian loop carries (``kf_x``, ``kf_p``, ``gs_niw``), which
-    belong to loop variants not ported yet."""
+    """Per-channel carry of the group engine ([C] leading dim), the
+    fields of ``gnss_sdr_tpu.tracking.fast_engine.FastState``."""
 
     active: torch.Tensor
     offset: torch.Tensor              # int32 block-relative next group start
@@ -64,6 +68,11 @@ class FastState(NamedTuple):
     code_lock_fail: torch.Tensor
     carrier_lock_fail: torch.Tensor
     loss_of_lock: torch.Tensor
+    kf_x: torch.Tensor                # [C, 4] KF state (loop="kf";
+    #                                   loop="gaussian" uses [:, 1:1+order])
+    kf_p: torch.Tensor                # [C, 4, 4]
+    gs_niw: torch.Tensor              # [C, 4] (iter, n, mu, psi) NIW carry
+    #                                   of loop="gaussian", float32
     # pilot secondary-code wipe-off (save_correlation_results,
     # dll_pll_veml_tracking.cc:1290): period j of a group is multiplied by
     # sec_signs[c, (sec_phase + j) % sec_len] before the group sum;
@@ -85,18 +94,28 @@ class FastTrackingEngine:
 
     def __init__(self, cfg: TrackingConfig, n_channels: int,
                  groups_per_block: int = 5, correlator: str = "bank",
-                 loop: str = "fllpll", sec_max_len: int = 1, device="cuda"):
+                 loop: str = "fllpll", kf_config=None, sec_max_len: int = 1,
+                 device="cuda"):
         if cfg.extend_correlation_symbols < 1:
             raise ValueError("extend_correlation_symbols must be >= 1")
         if correlator != "bank":
             raise NotImplementedError(
                 "only the bank correlator is ported; the segsum correlator "
                 "(K1-seg) is queued in ROADMAP")
-        if loop != "fllpll":
-            raise NotImplementedError(
-                f"loop={loop!r} (K6) is queued in ROADMAP; only 'fllpll' "
-                "is ported")
+        if loop not in ("fllpll", "kf", "gaussian"):
+            raise ValueError("loop must be 'fllpll', 'kf' or 'gaussian'")
         self.device = resolve_device(device)
+        self._gs_psi0 = 0.0
+        if loop == "kf":
+            self.kf_cfg = kf_config or KfConfig(
+                chip_rate_cps=cfg.chip_rate_cps, carrier_hz=cfg.carrier_hz)
+        elif loop == "gaussian":
+            self.gs_cfg = kf_config or GaussianConfig()
+            t_g = cfg.code_period_s * cfg.extend_correlation_symbols
+            r30 = float(phase_detector_variance(
+                self.gs_cfg.init_cn0_db_hz, t_g))
+            self._gs_psi0 = (float(self.gs_cfg.sigma2_phase) + r30) \
+                * (self.gs_cfg.bce_nu + 2.0)
         self.cfg = cfg
         self.n_channels = n_channels
         self.correlator = correlator
@@ -133,6 +152,10 @@ class FastTrackingEngine:
         self._fs = f32(cfg.fs)
         self._chip_rate = f32(cfg.chip_rate_cps)
         self._t_group = f32(cfg.code_period_s * self.k)
+        #: the KF and Gaussian steps' group time, as the JAX engine passes
+        #: it (float64, rounded into their matrices)
+        self._t_loop = float(cfg.code_period_s * self.k)
+        self._fs_over_chip = f32(F32(cfg.fs) / F32(cfg.chip_rate_cps))
         self._t_int = int(math.floor(t_nom_f64))
         self._t_frac_nom = f32(t_nom_f64 - math.floor(t_nom_f64))
         self._t_nom_over_f0 = f32(t_nom_f64 / cfg.chip_rate_cps)
@@ -147,6 +170,30 @@ class FastTrackingEngine:
                              - F32(cfg.carrier_lock_test_smoother_alpha))
 
     # -- state ------------------------------------------------------------
+    def _kf_p0(self) -> np.ndarray:
+        """Initial 4x4 covariance slab; loop='gaussian' embeds the
+        reference P_ini (phase/Doppler/rate) in the [1:, 1:] block."""
+        if self.loop == "gaussian":
+            p = np.eye(4, dtype=np.float32)
+            sub = _p_ini(self.gs_cfg)
+            n = sub.shape[0]
+            p[1:1 + n, 1:1 + n] = sub
+            return p
+        return np.diag(np.asarray([1.0, 10.0, 100.0, 10.0], np.float32))
+
+    def _loop_carries(self, doppler_hz) -> dict:
+        """``kf_x`` (the Doppler in column 2), ``kf_p`` and ``gs_niw`` of
+        channels starting at ``doppler_hz`` [C]."""
+        c = doppler_hz.shape[0]
+        kf_x = torch.zeros((c, 4), dtype=torch.float32,
+                           device=doppler_hz.device)
+        kf_x[:, 2] = doppler_hz
+        niw = torch.zeros((c, 4), dtype=torch.float32,
+                          device=doppler_hz.device)
+        niw[:, 3] = self._gs_psi0
+        p0 = torch.as_tensor(self._kf_p0(), device=doppler_hz.device)
+        return dict(kf_x=kf_x, kf_p=p0.expand(c, 4, 4).clone(), gs_niw=niw)
+
     def init_state(self) -> FastState:
         c, dev, cfg = self.n_channels, self.device, self.cfg
 
@@ -165,6 +212,7 @@ class FastTrackingEngine:
             prompt_count=z(dtype=i32), cn0_db_hz=z(), carrier_lock_test=z(),
             code_lock_fail=z(dtype=i32), carrier_lock_fail=z(dtype=i32),
             loss_of_lock=z(dtype=torch.bool),
+            **self._loop_carries(z()),
             sec_signs=torch.ones((c, self.sec_max_len), dtype=torch.float32,
                                  device=dev),
             sec_len=torch.ones((c,), dtype=i32, device=dev),
@@ -200,6 +248,7 @@ class FastTrackingEngine:
             code_lock_fail=ts.code_lock_fail.clone(),
             carrier_lock_fail=ts.carrier_lock_fail.clone(),
             loss_of_lock=ts.loss_of_lock.clone(),
+            **self._loop_carries(d),
             sec_signs=torch.ones((c, self.sec_max_len), dtype=torch.float32,
                                  device=dev),
             sec_len=torch.ones((c,), dtype=torch.int32, device=dev),
@@ -216,6 +265,8 @@ class FastTrackingEngine:
         else:
             w0, x0 = d, 0.0
         s = state
+        carries = self._loop_carries(
+            torch.full((1,), d, dtype=torch.float32, device=s.kf_x.device))
         return s._replace(
             active=set_channel(s.active, ch, True),
             offset=set_channel(s.offset, ch, int(offset_samples)),
@@ -228,6 +279,9 @@ class FastTrackingEngine:
             carr_w=set_channel(s.carr_w, ch, w0),
             carr_x=set_channel(s.carr_x, ch, x0),
             loss_of_lock=set_channel(s.loss_of_lock, ch, False),
+            kf_x=set_channel(s.kf_x, ch, carries["kf_x"][0]),
+            kf_p=set_channel(s.kf_p, ch, carries["kf_p"][0]),
+            gs_niw=set_channel(s.gs_niw, ch, carries["gs_niw"][0]),
             sec_signs=set_channel(s.sec_signs, ch, 1.0),
             sec_len=set_channel(s.sec_len, ch, 1),
             sec_phase=set_channel(s.sec_phase, ch, 0),
@@ -399,22 +453,74 @@ class FastTrackingEngine:
             dll_d = disc.dll_nc_e_minus_l_normalized(
                 g_re[:, 0], g_im[:, 0], g_re[:, 2], g_im[:, 2],
                 cfg.spc, cfg.slope, cfg.y_intercept)
-        (carr_w, carr_x), carrier_doppler = lf.fll_pll_step(
-            (s.carr_w, s.carr_x), torch.zeros_like(pll_hz), pll_hz,
-            self._t_group, self._gains)
-        (code_x_hist, code_y_hist), code_err = lf.iir_step(
-            (s.code_x_hist, s.code_y_hist), dll_d, self._dll_ic, self._dll_oc)
-        code_dop = -code_err
-        if cfg.carrier_aiding:
-            code_dop = code_dop + carrier_doppler * self._aiding
+        kf_x, kf_p, gs_niw = s.kf_x, s.kf_p, s.gs_niw
+        carr_w, carr_x = s.carr_w, s.carr_x
+        code_x_hist, code_y_hist = s.code_x_hist, s.code_y_hist
+        #: the KF and Gaussian loops' code [chips] and carrier [rad] phase
+        #: corrections, applied to the remnant carries (error-state reset)
+        code_corr = carr_corr = None
+        if self.loop == "kf":
+            # 4-state code/carrier KF closure (kf_tracking role): the
+            # discriminators are its measurements, the rates come from its
+            # Doppler (+ rate) states with implicit carrier aiding
+            kf_new, delta = kf_step(KfState(x=s.kf_x, p=s.kf_p), dll_d,
+                                    pll_rad, self._t_loop, self.kf_cfg)
+            kf_x, kf_p = kf_new.x, kf_new.p
+            carrier_doppler = kf_x[:, 2]
+            code_dop = carrier_doppler * self._aiding
+            code_corr, carr_corr = delta[:, 0], delta[:, 1]
+        elif self.loop == "gaussian":
+            # Gaussian carrier-KF closure (gps_l1_ca_gaussian_tracking
+            # role): the atan phase discriminator feeds the order-2/3
+            # carrier KF with NIW-adaptive R; the code closes through the
+            # DLL filter as a phase correction over the group, with full
+            # carrier aiding of the code rate (:717-738)
+            n = self.gs_cfg.order
+            gst = GaussState(
+                x=s.kf_x[:, 1:1 + n], p=s.kf_p[:, 1:1 + n, 1:1 + n],
+                niw_iter=s.gs_niw[:, 0].to(torch.int32),
+                niw_n=s.gs_niw[:, 1].to(torch.int32),
+                niw_mu=s.gs_niw[:, 2], niw_psi=s.gs_niw[:, 3])
+            gnew, ginfo = gaussian_step(gst, pll_rad, s.cn0_db_hz,
+                                        self._t_loop, self.gs_cfg)
+            carrier_doppler = ginfo["carrier_doppler_hz"]
+            code_dop = carrier_doppler * self._aiding
+            (code_x_hist, code_y_hist), code_err = lf.iir_step(
+                (s.code_x_hist, s.code_y_hist), dll_d, self._dll_ic,
+                self._dll_oc)
+            code_corr = code_err * self._t_group
+            carr_corr = ginfo["phase_corr_rad"]
+            kf_x = s.kf_x.clone()
+            kf_x[:, 1:1 + n] = gnew.x
+            kf_p = s.kf_p.clone()
+            kf_p[:, 1:1 + n, 1:1 + n] = gnew.p
+            gs_niw = torch.stack([gnew.niw_iter.to(torch.float32),
+                                  gnew.niw_n.to(torch.float32),
+                                  gnew.niw_mu, gnew.niw_psi], dim=1)
+        else:
+            (carr_w, carr_x), carrier_doppler = lf.fll_pll_step(
+                (s.carr_w, s.carr_x), torch.zeros_like(pll_hz), pll_hz,
+                self._t_group, self._gains)
+            (code_x_hist, code_y_hist), code_err = lf.iir_step(
+                (s.code_x_hist, s.code_y_hist), dll_d, self._dll_ic,
+                self._dll_oc)
+            code_dop = -code_err
+            if cfg.carrier_aiding:
+                code_dop = code_dop + carrier_doppler * self._aiding
 
         # ---- carry to the next group (int + small fraction) ---------------
         frac_end = s.rem_code_phase_samples + self._k_f32 * t_frac
+        group_len = self._k_t_int_f32 + self._k_f32 * t_frac
+        if code_corr is not None:
+            corr_samp = code_corr * self._fs_over_chip
+            frac_end = frac_end + corr_samp
+            group_len = group_len + corr_samp
         fl_end = torch.floor(frac_end)
         new_offset = s.offset + k_ext * self._t_int + fl_end.to(torch.int32)
         new_rem = frac_end - fl_end
-        group_len = self._k_t_int_f32 + self._k_f32 * t_frac
         carr_incr = step * group_len
+        if carr_corr is not None:
+            carr_incr = carr_incr + carr_corr
         new_rem_carr = torch.remainder(s.rem_carr_phase_rad + carr_incr,
                                        TWO_PI_F32)
 
@@ -458,6 +564,7 @@ class FastTrackingEngine:
             carrier_lock_fail=torch.where(loss, torch.zeros_like(cfail),
                                           cfail),
             loss_of_lock=s.loss_of_lock | (loss & s.active),
+            kf_x=kf_x, kf_p=kf_p, gs_niw=gs_niw,
             sec_signs=s.sec_signs, sec_len=s.sec_len, sec_phase=new_sec_phase,
             secondary_locked=s.secondary_locked,
         )

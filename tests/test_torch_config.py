@@ -69,8 +69,9 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
 
 def test_import_isolation():
     """Importing the port, every module of it (the conditioner, the live
-    and LabSat sources, the Galileo E1 codes and I/NAV telemetry and the
-    multi-band receivers among them) and chip_smoke leaves JAX and the
+    and LabSat sources, the Galileo E1 codes and I/NAV telemetry, the
+    multi-band receivers, the acquisition variants and the KF/Gaussian
+    loops among them) and chip_smoke leaves JAX and the
     JAX package out of sys.modules (fresh interpreter: the test process
     itself has JAX loaded by conftest)."""
     code = r"""
@@ -98,7 +99,15 @@ need = {"gnss_sdr_tpu_torch.conditioner.chain",
         "gnss_sdr_tpu_torch.telemetry.galileo_inav",
         "gnss_sdr_tpu_torch.receiver.bands",
         "gnss_sdr_tpu_torch.receiver.multiband",
-        "gnss_sdr_tpu_torch.receiver.production_multiband"}
+        "gnss_sdr_tpu_torch.receiver.production_multiband",
+        "gnss_sdr_tpu_torch.acquisition.variants",
+        "gnss_sdr_tpu_torch.acquisition.tong",
+        "gnss_sdr_tpu_torch.kernels.acq_variants",
+        "gnss_sdr_tpu_torch.kernels.loops",
+        "gnss_sdr_tpu_torch.ops.kalman",
+        "gnss_sdr_tpu_torch.ops.gaussian",
+        "gnss_sdr_tpu_torch.codes.galileo_e5a",
+        "gnss_sdr_tpu_torch.codes._galileo_e5a_data"}
 assert need <= set(mods), need - set(mods)
 print("ok", len(mods))
 """

@@ -312,3 +312,119 @@ def test_acq_kernels_at_e1_shapes(dev):
     sp = acq.acq_stats_plain(gp, rmp, rap, 1, eng.cfg.samples_per_chip, True)
     assert torch.equal(sk[1], sp[1]) and torch.equal(sk[2], sp[2])
     torch.testing.assert_close(sk[0], sp[0], rtol=1e-4, atol=0)
+
+
+@pytest.mark.parametrize("fold,n", [(2, 4000), (2, 16000), (4, 16368)])
+def test_fold_wipeoff_kernel_matches_plain(dev, fold, n):
+    """K5a at QuickSync's L1 (1 ms) and E1 (4 ms) shapes: phases up to
+    ~125 rad at E1's last samples."""
+    from gnss_sdr_tpu_torch.kernels import acq_variants as k5
+    from gnss_sdr_tpu_torch.kernels.acq import wipeoff_scale
+
+    rng = np.random.default_rng(n + fold)
+    x = torch.as_tensor((rng.standard_normal(n) + 1j * rng.standard_normal(n))
+                        .astype(np.complex64), device=dev)
+    dop = torch.as_tensor(np.arange(-5000, 5000, 250, dtype=np.float32),
+                          device=dev)
+    c0 = wipeoff_scale(n * 1000.0 / (4 if n > 4000 else 1))
+    got = k5.fold_wipeoff(x, dop, c0, fold)
+    want = k5.fold_wipeoff_plain(x, dop, c0, fold)
+    assert got.shape == (dop.shape[0], n // fold)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_cccwsr_combine_kernel_matches_plain(dev):
+    """K5b: the grid to the bit, the row peaks and their first argmax
+    equal, ties included."""
+    from gnss_sdr_tpu_torch.kernels import acq_variants as k5
+
+    rng = np.random.default_rng(12)
+    shape = (3, 7, 5000)
+
+    def grid():
+        return torch.as_tensor((rng.standard_normal(shape) + 1j
+                                * rng.standard_normal(shape))
+                               .astype(np.complex64), device=dev)
+
+    yb, yc = grid(), grid()
+    yc[1, 2] = yb[1, 2]            # minus is 0 on a whole row
+    yb[2, 3, 100] = yb[2, 3, 4000] = 30.0   # a tie: the first index wins
+    yc[2, 3, 100] = yc[2, 3, 4000] = 0.0
+    got = k5.cccwsr_combine(yb, yc)
+    want = k5.cccwsr_combine_plain(yb, yc)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+
+
+def test_kf_step_kernel_matches_plain_over_chained_steps(dev):
+    """K6a over 500 chained steps of 8 channels, within 1e-5 of the plain
+    version's scale (x per column, P per channel)."""
+    from gnss_sdr_tpu_torch.kernels import loops
+    from gnss_sdr_tpu_torch.ops.kalman import (KfConfig, _matrices,
+                                               kf_init)
+
+    rng = np.random.default_rng(21)
+    f, q, r = _matrices(KfConfig(), 0.02)
+    s = kf_init(rng.normal(size=8), rng.uniform(0, 6, 8),
+                rng.uniform(-4000, 4000, 8), device=dev)
+    xk, pk = s.x, s.p
+    xp, pp = s.x, s.p
+    for _ in range(500):
+        ce = torch.as_tensor(rng.normal(0, 0.05, 8).astype(np.float32),
+                             device=dev)
+        pe = torch.as_tensor(rng.normal(0, 0.2, 8).astype(np.float32),
+                             device=dev)
+        xk, pk, dk = loops.kf_step(xk, pk, ce, pe, f, q, r)
+        xp, pp, dp = loops.kf_step_plain(xp, pp, ce, pe, f, q, r)
+    scale_x = torch.amax(torch.abs(xp), dim=0)
+    assert float(torch.max(torch.abs(xk - xp) / scale_x)) <= 1e-5
+    scale_p = torch.amax(torch.abs(pp), dim=(1, 2), keepdim=True)
+    assert float(torch.max(torch.abs(pk - pp) / scale_p)) <= 1e-5
+
+
+@pytest.mark.parametrize("order", [2, 3])
+def test_gaussian_step_kernel_matches_plain_over_chained_steps(dev, order):
+    """K6b over 500 chained steps of 8 channels (the NIW update from step
+    20, the Bayesian R from step 70): counters equal, the rest within
+    1e-5 of the plain version's scale."""
+    from gnss_sdr_tpu_torch.kernels import loops
+    from gnss_sdr_tpu_torch.ops.gaussian import (GaussianConfig,
+                                                 gaussian_init, step_params)
+
+    rng = np.random.default_rng(22 + order)
+    cfg = GaussianConfig(order=order)
+    prm = step_params(cfg, 0.02)
+    s = gaussian_init(rng.uniform(-4000, 4000, 8), cfg, 0.02, device=dev)
+    k = p = tuple(s)
+    for _ in range(500):
+        y = torch.as_tensor(rng.normal(0, 0.2, 8).astype(np.float32),
+                            device=dev)
+        cn0 = torch.as_tensor(rng.uniform(35, 50, 8).astype(np.float32),
+                              device=dev)
+        *k, ik = loops.gaussian_step(*k, y, cn0, prm)
+        *p, ip = loops.gaussian_step_plain(*p, y, cn0, prm)
+    assert torch.equal(k[2], p[2]) and torch.equal(k[3], p[3])
+    for a, b in [(k[0], p[0]), (k[4][:, None], p[4][:, None]),
+                 (k[5][:, None], p[5][:, None]), (ik.T, ip.T)]:
+        scale = torch.clamp(torch.amax(torch.abs(b), dim=0), min=1e-30)
+        assert float(torch.max(torch.abs(a - b) / scale)) <= 1e-5
+    scale_p = torch.amax(torch.abs(p[1]), dim=(1, 2), keepdim=True)
+    assert float(torch.max(torch.abs(k[1] - p[1]) / scale_p)) <= 1e-5
+
+
+def test_variant_and_loop_wrappers_count_launches(dev):
+    from gnss_sdr_tpu_torch.kernels import (LAUNCHES, acq_variants, loops,
+                                            reset_launches)
+    from gnss_sdr_tpu_torch.ops.kalman import KfConfig, _matrices, kf_init
+
+    reset_launches()
+    x = torch.zeros(64, dtype=torch.complex64, device=dev)
+    acq_variants.fold_wipeoff(x, torch.zeros(2, device=dev), -1e-6, 2)
+    y = torch.zeros((1, 2, 8), dtype=torch.complex64, device=dev)
+    acq_variants.cccwsr_combine(y, y)
+    s = kf_init(np.zeros(2), np.zeros(2), np.zeros(2), device=dev)
+    z = torch.zeros(2, device=dev)
+    loops.kf_step(s.x, s.p, z, z, *_matrices(KfConfig(), 0.02))
+    loops.kf_step_plain(s.x, s.p, z, z, *_matrices(KfConfig(), 0.02))
+    assert [LAUNCHES[k] for k in ("fold_wipeoff", "cccwsr_combine",
+                                  "kf_step")] == [1, 1, 1]

@@ -16,7 +16,10 @@
    at 45 dB-Hz with assisted ephemerides, and checks fast mode, the
    handoff time, the fix count and the position error against the truth.
    Every kernel counter is set to 0 just before the run and read just
-   after it; a kernel of the path that never launched fails the run.
+   after it; a kernel of the path that never launched fails the run. The
+   engines run on the fused kernels, K3-loop (``scan_loop``) and K1-loop
+   (``fast_loop``), one launch per superblock (checked against the
+   engine calls logged during the run); K3 and K1 run inside them.
 5. Conditioned phase: the scene upsampled to an 8 Msps front-end capture
    (12 s, 96 M samples; the empty outer half of the band filled with
    seeded white noise) becomes three configs, each run from an INI
@@ -66,7 +69,17 @@ and cache the scenes the slices then load):
    (``loop="fllpll"``, ``"kf"``, ``"gaussian"``): no loss of lock, the
    last 10 groups' mean Doppler within 5 Hz of the truth, the last C/N0
    within 5 dB of 45 dB-Hz.
-10. Prints one ``{"kernels": [...]}`` line, one ``{"slice": ...}`` line,
+10. Fused phase (``fused_loop_phase``, after step 7): K3-loop and
+   K1-loop against their plain versions (the engines' per-step and
+   per-group paths, ``_blocks_stepwise``: K3 / K1 / K6 and PyTorch) from
+   states the receivers reached mid-run: the L1 slice's last phase-A
+   superblock and its second phase-B superblock, the multi-band run's
+   last ten E1 phase-A blocks (float32 planes, pilot + data prompt) and
+   its second E1 phase-B superblock (K = 25, data tap, CS25). The first
+   period's (group's) correlations must be equal to the bit, every
+   record and the end state within the JAX suite's tolerances; both
+   paths are timed with CUDA events.
+11. Prints one ``{"kernels": [...]}`` line, one ``{"slice": ...}`` line,
    one ``{"multiband": ...}`` line, one ``{"conditioned": ...}`` line,
    one ``{"variants": ...}`` line and, last,
    ``{"ok": true, "device": {...}}``.
@@ -112,9 +125,20 @@ TOL = {"bank_corr": 1e-4, "multicorr": 1e-3, "acq_wipeoff": 1e-4,
        # in the same order, fused multiply-adds where the plain version
        # fuses them
        "kf_step": 1e-5, "gaussian_step": 1e-5}
-#: kernels of the unconditioned slice (the production L1 receiver)
-SLICE_KERNELS = ("multicorr", "bank_corr", "acq_wipeoff", "acq_product",
+#: kernels of the unconditioned slice (the production L1 receiver): K3
+#: and K1 run there only inside K3-loop and K1-loop (their bodies are
+#: inlined), so on the paths they launch only in the kernel phases and as
+#: the fused kernels' oracle
+SLICE_KERNELS = ("scan_loop", "fast_loop", "acq_wipeoff", "acq_product",
                  "acq_accum", "acq_stats")
+#: the fused kernels against their plain versions (_blocks_stepwise), the
+#: JAX suite's tolerances (tests/test_fast_engine.py:153-161): period
+#: boundaries [samples], Doppler [Hz], C/N0 [dB-Hz], prompt magnitude
+#: (relative)
+FUSED_TOL = {"boundary": 0.02, "doppler": 1.0, "cn0": 1.0, "prompt": 0.02}
+#: which fused kernel runs each inlined kernel's body on the paths
+INLINED = {"multicorr": "scan_loop", "bank_corr": "fast_loop",
+           "kf_step": "fast_loop", "gaussian_step": "fast_loop"}
 
 
 def fail(msg: str) -> None:
@@ -644,6 +668,11 @@ def slice_phase(torch, np, build_dir, card):
     from gnss_sdr_tpu_torch.kernels import LAUNCHES, reset_launches
     from gnss_sdr_tpu_torch.receiver.assistance import save_ephemeris_xml
     from gnss_sdr_tpu_torch.receiver.factory import make_receiver
+    from gnss_sdr_tpu_torch.acquisition.pcps import PcpsAcquisition
+    from gnss_sdr_tpu_torch.receiver.production import ProductionReceiver
+    from gnss_sdr_tpu_torch.tracking.channels import TrackingChannels
+    from gnss_sdr_tpu_torch.tracking.engine import TrackingEngine
+    from gnss_sdr_tpu_torch.tracking.fast_engine import FastTrackingEngine
 
     x, ephs, prns, rx, scene_s = scene(np, build_dir)
     fs = SCENE["fs"]
@@ -656,17 +685,32 @@ def slice_phase(torch, np, build_dir, card):
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
-    sols = rec.run(x)
+    with CallLog(TrackingEngine, "superblock_ring_i8") as scan_log, \
+            CallLog(TrackingEngine, "process_block") as block_log, \
+            CallLog(FastTrackingEngine, "superblock_ring_i8") as fast_log, \
+            CallLog(PcpsAcquisition, "search") as acq_log, \
+            CallLog(TrackingChannels, "process_superblock_ring") as trk_log, \
+            CallLog(ProductionReceiver, "_consume_superblock") as use_log:
+        sols = rec.run(x)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = dict(LAUNCHES)
     missing = [k for k in SLICE_KERNELS if launches[k] == 0]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
+    # one fused launch per engine call, and K3 / K1 only inside them
+    n_scan = len(scan_log.calls) + len(block_log.calls)
+    if launches["scan_loop"] != n_scan \
+            or launches["fast_loop"] != len(fast_log.calls) \
+            or launches["multicorr"] or launches["bank_corr"]:
+        fail(f"slice: launches {launches} are not one fused launch per "
+             f"superblock ({n_scan} scan, {len(fast_log.calls)} fast)")
     mean_err, max_err = check_fix_stream(np, rec, sols, rx, fs, "slice")
     tm = dict(rec.timings)
     signal_s = len(x) / fs
-    phases = profile_phases(torch, rec)
+    # mid-run superblocks: the last of phase A, the second of phase B
+    mid = dict(scan=scan_log.calls[-1], fast=fast_log.calls[1])
+    phases = profile_phases(torch, mid)
     result = dict(
         fixes=len(sols), mean_err_m=mean_err, max_err_m=max_err,
         handoff_s=rec.handoff_sample / fs, timings=tm,
@@ -674,40 +718,53 @@ def slice_phase(torch, np, build_dir, card):
         rtf_phase_b=(tm["phase_b_samples"] / fs) / tm["phase_b_s"],
         rtf_total=signal_s / run_s, run_s=run_s, signal_s=signal_s,
         scene_s=scene_s, channels=8, fs=fs, prns=prns,
+        # host wall seconds inside the run: phase A's acquisition searches
+        # and its scan superblocks (engine call, readback, period records),
+        # phase B's dispatches and its host pass over each superblock
+        # (readback wait, decode, observables; PVT runs outside it)
+        split_s=dict(acquisition=acq_log.seconds,
+                     scan_superblocks=trk_log.seconds,
+                     fast_dispatch=fast_log.seconds,
+                     fast_consume=use_log.seconds),
         profile=phases, card=card)
-    return result, launches
+    return result, launches, mid
 
 
-def profile_phases(torch, rec):
-    """After the main path's run (its launch counts already read): one
-    more phase-A superblock (10 scan blocks, acquisition excluded) and
-    one more phase-B superblock (10 fast blocks), each under the
-    profiler, for the host wall time, the device time and the share of
-    the wall time the device was busy."""
-    out = {}
-    trk = rec.receiver.tracking
-    ring = rec._ring
-    base = 0
+def busy_share(torch, calls, readback):
+    """The engine ``calls`` (each one fused launch) as the receiver runs
+    them, each followed by ``readback`` of its output: the host wall time
+    (synchronized, median of three), the device time of the same calls
+    back to back (CUDA events; the queue stays full, so the events time
+    the kernels) and the share of the wall time the card is busy."""
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for call in calls:
+            readback(call())
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = sorted(walls)[1]
+    dev = time_ms(torch, lambda: [call() for call in calls], reps=3)
+    return dict(wall_ms=wall, device_ms=dev, busy_share=dev / wall,
+                calls=len(calls))
 
-    def phase_a():
-        trk.engine.superblock_ring_i8(trk.state, ring, base, 10,
-                                      trk._code_tables_dev)[1]["packed"].cpu()
 
-    def phase_b():
-        bank = rec.fast.get_bank(rec._fast_codes)
-        rec.fast.superblock_ring_i8(rec.fast_state, ring, base, 10,
-                                    bank)[1]["packed"].cpu()
-
-    for name, fn in (("phase_a_superblock", phase_a),
-                     ("phase_b_superblock", phase_b)):
-        wall, dev, kernels = profile(torch, fn, reps=2)
-        top = sorted(kernels.items(), key=lambda kv: -kv[1][0] * kv[1][1])
-        out[name] = dict(
-            wall_ms=wall, device_ms=dev,
-            busy_share=None if dev is None else dev / wall,
-            top_kernels=[dict(name=k[:60], us_per_launch=u, launches=n / 2)
-                         for k, (u, n) in top[:6]])
-    return out
+def profile_phases(torch, mid):
+    """After the main path's run (its launch counts already read): the
+    slice's last phase-A superblock (10 scan blocks, acquisition
+    excluded) and its second phase-B superblock (10 fast blocks) again,
+    from the states logged during the run, for the host wall time, the
+    device time and the card's busy share (``busy_share``)."""
+    eng, args = mid["scan"]
+    fast, fargs = mid["fast"]
+    return dict(
+        phase_a_superblock=busy_share(
+            torch, [lambda: eng.superblock_ring_i8(*args)],
+            lambda out: out[1]["packed"].cpu()),
+        phase_b_superblock=busy_share(
+            torch, [lambda: fast.superblock_ring_i8(*fargs)],
+            lambda out: out[1]["packed"].cpu()))
 
 
 # ---------------------------------------------------------------------------
@@ -1044,6 +1101,33 @@ class Timed:
         return timed
 
 
+class CallLog:
+    """While active, every call of method ``name`` of class ``cls``:
+    (the instance, its positional arguments) appended to ``calls`` and
+    its host wall time added to ``seconds``; the method itself runs
+    unchanged. The engines' states are functional, so a logged state is
+    the one the call started from."""
+
+    def __init__(self, cls, name):
+        self.cls, self.name, self.calls, self.seconds = cls, name, [], 0.0
+
+    def __enter__(self):
+        orig = self._orig = self.cls.__dict__[self.name]
+
+        def logged(inst, *a, **k):
+            self.calls.append((inst, a))
+            t0 = time.perf_counter()
+            try:
+                return orig(inst, *a, **k)
+            finally:
+                self.seconds += time.perf_counter() - t0
+        setattr(self.cls, self.name, logged)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.cls, self.name, self._orig)
+
+
 def streaming_phase(torch, np, build_dir, raw_a, prns, xml):
     """The first STREAM_S seconds of config A's raw capture through the
     CLI's streaming branch (``__main__.stream``): a FIFO source (a file
@@ -1088,7 +1172,7 @@ def streaming_phase(torch, np, build_dir, raw_a, prns, xml):
     launches = dict(LAUNCHES)
     source.close()
     os.remove(path)
-    want = ("fir_decim", "multicorr", "acq_wipeoff", "acq_product",
+    want = ("fir_decim", "scan_loop", "acq_wipeoff", "acq_product",
             "acq_accum", "acq_stats")
     missing = [k for k in want if launches[k] == 0]
     if missing:
@@ -1461,6 +1545,8 @@ def multiband_phase(torch, np, build_dir, card):
     from gnss_sdr_tpu_torch.receiver.factory import make_receiver
     from gnss_sdr_tpu_torch.receiver.production_multiband import \
         ProductionMultiBandReceiver
+    from gnss_sdr_tpu_torch.tracking.engine import TrackingEngine
+    from gnss_sdr_tpu_torch.tracking.fast_engine import FastTrackingEngine
 
     x, gal_ephs, gps_prns, gal_prns, rx, scene_s = mb_scene(np, build_dir)
     gps_ephs = scene_geometry()[0]
@@ -1478,13 +1564,18 @@ def multiband_phase(torch, np, build_dir, card):
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
-    sols = rec.run(x)
+    with CallLog(TrackingEngine, "process_block") as scan_log, \
+            CallLog(FastTrackingEngine, "superblock_ring_i8") as fast_log:
+        sols = rec.run(x)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = dict(LAUNCHES)
     missing = [k for k in SLICE_KERNELS if launches[k] == 0]
     if missing:
         fail(f"multi-band: kernels never launched: {missing}")
+    if launches["multicorr"] or launches["bank_corr"]:
+        fail(f"multi-band: K3 / K1 launched outside the fused kernels: "
+             f"{launches}")
     if not rec.in_fast_mode:
         fail("multi-band: the receiver never handed off to the fast engines")
     handoff_s = rec.handoff_sample / fs
@@ -1506,12 +1597,19 @@ def multiband_phase(torch, np, build_dir, card):
     if sols[-1].n_sats < 12:
         fail(f"multi-band: {sols[-1].n_sats} satellites in the last fix")
     tm = dict(rec.timings)
-    by_band = band_launches(rec)
-    for k in ("multicorr", "bank_corr"):
+    by_band = band_launches(rec, scan_log.calls, fast_log.calls)
+    for k in ("scan_loop", "fast_loop"):
         if sum(b[k] for b in by_band.values()) != launches[k]:
             fail(f"multi-band: {k} launches {launches[k]} are not the "
                  f"bands' {by_band}")
-    profile = profile_mb_phases(torch, np, rec, x)
+    # mid-run superblocks of the E1 band for fused_loop_phase: its last
+    # ten phase-A blocks (float32 planes) and its second phase-B superblock
+    e1_scan = next(b for b in rec.receiver.bands
+                   if b.cfg.suffix == "1B").tracking.engine
+    e1_fast = rec._ctx["1B"].fast
+    mid = dict(scan=[c for c in scan_log.calls if c[0] is e1_scan][-10:],
+               fast=[c for c in fast_log.calls if c[0] is e1_fast][1])
+    profile = profile_mb_phases(torch, scan_log.calls, fast_log.calls)
     return dict(
         fixes=len(sols), mean_err_last_third_m=mean_err, max_err_m=max(errs),
         last_fix_sats=sols[-1].n_sats, handoff_s=handoff_s,
@@ -1522,65 +1620,247 @@ def multiband_phase(torch, np, build_dir, card):
         channels={"1C": 8, "1B": 8}, gps_prns=gps_prns, gal_prns=gal_prns,
         gal_cn0_db_hz=MB["gal_cn0_db_hz"], profile=profile,
         launches={k: launches[k] for k in SLICE_KERNELS},
-        launches_by_band=by_band, card=card), launches
+        launches_by_band=by_band, card=card), launches, mid
 
 
-def band_launches(rec):
-    """The multi-band run's K3 and K1 launches split by band, from the
-    blocks each band's engines ran: a scan block launches K3 once a step
-    (twice on a pilot-tracked band, for the data prompt), a fast block K1
-    once a group."""
+def band_launches(rec, scan_calls, fast_calls):
+    """The multi-band run's K3-loop and K1-loop launches split by band,
+    from the engine calls logged during the run (one launch a call) and
+    checked against the blocks each band's engines ran: a scan block is
+    one process_block call, a fast superblock one dispatch."""
     out = {}
     for band in rec.receiver.bands:
         trk, ctx = band.tracking, rec._ctx[band.cfg.suffix]
-        scan_blocks = trk.abs_block_start // band.block_samples
-        fast_blocks = (ctx.base - trk.abs_block_start) \
-            // ctx.fast.block_samples
-        out[band.cfg.suffix] = dict(
-            multicorr=scan_blocks * trk.engine.n_steps
-            * (2 if trk.cfg.track_pilot else 1),
-            bank_corr=fast_blocks * ctx.fast.g)
+        n_scan = sum(c[0] is trk.engine for c in scan_calls)
+        fast = [c[1][3] for c in fast_calls if c[0] is ctx.fast]
+        if n_scan != trk.abs_block_start // band.block_samples \
+                or sum(fast) * ctx.fast.block_samples \
+                != ctx.base - trk.abs_block_start:
+            fail(f"multi-band: band {band.cfg.suffix}'s logged calls do not "
+                 "cover its blocks")
+        out[band.cfg.suffix] = dict(scan_loop=n_scan, fast_loop=len(fast))
     return out
 
 
-def profile_mb_phases(torch, np, rec, x):
-    """After the run (its launch counts already read): ten more phase-A
-    blocks of both bands' scan engines (acquisition excluded) and one
-    more phase-B superblock (ten fast blocks of each band, dispatched
-    and read back), each under the profiler."""
-    r = rec.receiver
-    blocks = r.band_blocks(x, 0)
+def profile_mb_phases(torch, scan_calls, fast_calls):
+    """After the run (its launch counts already read): both bands' last
+    ten phase-A blocks (one scan-engine call and one readback a block and
+    band, as phase A runs them; the blocks' host-to-device copies
+    excluded) and both bands' second phase-B superblocks (dispatched and
+    read back), from the calls logged during the run (``busy_share``)."""
+    def bind(inst, args, name):
+        return lambda: getattr(inst, name)(*args)
 
-    def phase_a():
-        for _ in range(10):
-            for band in r.bands:
-                trk = band.tracking
-                bx = blocks[band.cfg.suffix][:band.block_samples
-                                             + trk.overlap]
-                re = torch.as_tensor(np.ascontiguousarray(
-                    bx.real, np.float32), device="cuda")
-                im = torch.as_tensor(np.ascontiguousarray(
-                    bx.imag, np.float32), device="cuda")
-                trk.engine.process_block(
-                    trk.state, re, im, trk._code_tables_dev,
-                    trk._data_code_tables_dev)[1]["packed"].cpu()
+    keep = set()
+    for e in dict.fromkeys(c[0] for c in scan_calls):
+        keep.update([i for i, c in enumerate(scan_calls) if c[0] is e][-10:])
+    last = [scan_calls[i] for i in sorted(keep)]
+    fast = [[c for c in fast_calls if c[0] is e][1]
+            for e in dict.fromkeys(c[0] for c in fast_calls)]
+    return dict(
+        phase_a_10_blocks=busy_share(
+            torch, [bind(i, a, "process_block") for i, a in last],
+            lambda out: out[1]["packed"].cpu()),
+        phase_b_superblock=busy_share(
+            torch, [bind(i, a, "superblock_ring_i8") for i, a in fast],
+            lambda out: out[1]["packed"].cpu()))
 
-    def phase_b():
-        for ctx in rec._ctx.values():
-            bank = ctx.fast.get_bank(ctx.codes, ctx.data_codes)
-            ctx.fast.superblock_ring_i8(ctx.state, ctx.ring, 0, 10,
-                                        bank)[1]["packed"].cpu()
 
-    out = {}
-    for name, fn in (("phase_a_10_blocks", phase_a),
-                     ("phase_b_superblock", phase_b)):
-        wall, dev, kernels = profile(torch, fn, reps=2)
-        top = sorted(kernels.items(), key=lambda kv: -kv[1][0] * kv[1][1])
-        out[name] = dict(
-            wall_ms=wall, device_ms=dev,
-            busy_share=None if dev is None else dev / wall,
-            top_kernels=[dict(name=k[:60], us_per_launch=u, launches=n / 2)
-                         for k, (u, n) in top[:6]])
+# ---------------------------------------------------------------------------
+# the fused tracking programs (K3-loop, K1-loop) against their plain versions
+# ---------------------------------------------------------------------------
+
+def record_maxima(torch, pa, pb, valid, starts, rems, dopp, cn0, prompts):
+    """The plain (pa) against the fused (pb) packed records: the largest
+    boundary [samples], Doppler [Hz] and C/N0 [dB-Hz] difference over the
+    valid rows and the largest relative prompt-magnitude difference
+    (column lists index the record's last axis). Fails on rows that one
+    path processed and the other did not."""
+    if not torch.equal(pa[..., valid], pb[..., valid]):
+        fail("fused: the valid rows differ from the plain version's")
+    v = pa[..., valid] > 0.5
+    a, b = pa.double(), pb.double()
+    bnd = (a[..., starts] + a[..., rems]) - (b[..., starts] + b[..., rems])
+    ma = torch.hypot(a[..., prompts[0]], a[..., prompts[1]])
+    mb = torch.hypot(b[..., prompts[0]], b[..., prompts[1]])
+    rel = (ma - mb).abs() / ma.clamp(min=1e-3 * float(ma.max()))
+    return dict(
+        boundary=float(bnd[v].abs().max()),
+        doppler=float((a[..., dopp] - b[..., dopp])[v].abs().max()),
+        cn0=float((a[..., cn0] - b[..., cn0])[v].abs().max()),
+        prompt=float(rel[v].max()),
+        prompt_abs=float((torch.cat([a[..., prompts[0]], a[..., prompts[1]]])
+                          - torch.cat([b[..., prompts[0]],
+                                       b[..., prompts[1]]])).abs().max()),
+        valid_rows=int(v.sum()))
+
+
+def state_maxima(torch, sa, sb):
+    """The two end states: boundary and Doppler differences, and whether
+    the lock flags agree."""
+    bnd = (sa.offset.double() + sa.rem_code_phase_samples.double()) \
+        - (sb.offset.double() + sb.rem_code_phase_samples.double())
+    return dict(
+        end_boundary=float(bnd.abs().max()),
+        end_doppler=float((sa.carrier_doppler_hz
+                           - sb.carrier_doppler_hz).abs().max()),
+        end_flags_equal=bool(torch.equal(sa.active, sb.active)
+                             and torch.equal(sa.loss_of_lock,
+                                             sb.loss_of_lock)))
+
+
+def fused_case(torch, name, variant, fused, plain, cols, first, bound_of,
+               launches, shape):
+    """One fused kernel call (``fused``: (state, packed)) against its plain
+    version (``plain``) from the same state: the kernel's launch count in
+    that call, the first period's or group's correlations to the bit
+    (``first`` selects them), the records (``cols`` for record_maxima)
+    and the end state within FUSED_TOL, and the bound of the plain
+    record's work (``bound_of``: bytes, operations). Times (CUDA
+    events): ``ms`` per call over back-to-back calls, ``event_us`` of one
+    call between synchronizations, ``plain_ms`` of one plain call;
+    ``device_us`` from the profiler (None when it records no device
+    time). Returns the kernel line."""
+    from gnss_sdr_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    torch.cuda.synchronize()
+    reset_launches()
+    sb, pb = fused()
+    torch.cuda.synchronize()
+    got = {k: v for k, v in LAUNCHES.items() if v}
+    if got != {name: 1}:
+        fail(f"fused {name} ({variant}): launches {got}, not one {name}")
+    sa, pa = plain()
+    torch.cuda.synchronize()
+    m = record_maxima(torch, pa, pb, *cols)
+    m.update(state_maxima(torch, sa, sb))
+    m["first_correlations_equal"] = bool(torch.equal(first(pa), first(pb)))
+    print(f"chip_smoke: fused {name} ({variant}): {json.dumps(m)}",
+          file=sys.stderr, flush=True)
+    for key, tol in FUSED_TOL.items():
+        for k in (key, "end_" + key):
+            if k in m and not m[k] <= tol:
+                fail(f"fused {name} ({variant}): {k} {m[k]} > {tol}")
+    if not (m["end_flags_equal"] and m["first_correlations_equal"]):
+        fail(f"fused {name} ({variant}): {m}")
+    b, by = bound_ms(*bound_of(pa))
+    symbol = f"{name}_kernel"
+    return dict(
+        name=name, route="cuda",
+        source=f"gnss_sdr_tpu_torch/kernels/csrc/{name}.cu",
+        replaces={"scan_loop": "gnss_sdr_tpu/tracking/engine.py:474",
+                  "fast_loop": "gnss_sdr_tpu/tracking/fast_engine.py:422"}[
+                      name],
+        launches=launches, max_abs_err=m["prompt_abs"], rel_err=m["prompt"],
+        tol=FUSED_TOL["prompt"], maxima=m, ms=time_ms(torch, fused, 5),
+        device_us=kernel_device_us(torch, fused, symbol),
+        event_us=event_us(torch, fused, 3),
+        plain_ms=event_us(torch, plain, 1) / 1e3, bound_ms=b, bound_by=by,
+        library_ms=None, variant=variant, shape=shape)
+
+
+def scan_case(torch, eng, state, src_re, src_im, base, stride, n, codes,
+              dcodes, fused, variant, launches):
+    """K3-loop on ``n`` blocks against TrackingEngine._blocks_stepwise."""
+    t = eng.cfg.n_taps
+    c = eng.n_channels
+
+    def plain():
+        return eng._blocks_stepwise(state, src_re, src_im, base, stride, n,
+                                    codes, dcodes)
+
+    def run():
+        out = fused()
+        return out[0], out[1]["packed"]
+
+    def bound_of(pa):
+        # each period's window read once (every period of every channel
+        # is correlated), the tables once, the records and the state in
+        # and out once
+        n_samp = float(torch.clamp(pa[..., 2], max=eng.max_period).sum())
+        tables = codes.numel() + (dcodes.numel() if dcodes is not None
+                                  else 0)
+        state_b = sum(x.numel() * x.element_size() for x in state)
+        return (n_samp * 2 * src_re.element_size() + tables * 4
+                + pa.numel() * 4 + 2 * state_b,
+                n_samp * (8 + 4 * t + (4 if dcodes is not None else 0)))
+    return fused_case(
+        torch, "scan_loop", variant, run, plain,
+        (0, [1], [3], 8, 11, ([4, 6], [5, 7])),
+        lambda p: torch.cat([p[0, 0, :, 4:8], p[0, 0, :, 15:]], -1),
+        bound_of, launches,
+        f"C={c} T={t} blocks={n} steps={eng.n_steps} L={eng.max_period} "
+        f"{src_re.dtype}")
+
+
+def fast_case(torch, fast, state, ring, base, n, bank, variant, launches):
+    """K1-loop on ``n`` ring blocks against
+    FastTrackingEngine._blocks_stepwise."""
+    k, c, g = fast.k, fast.n_channels, fast.g
+    nt = bank.shape[2]
+
+    def plain():
+        return fast._blocks_stepwise(state, ring[0], ring[1], base,
+                                     fast.block_samples, n, bank)[:2]
+
+    def run():
+        out = fast.superblock_ring_i8(state, ring, base, n, bank)
+        return out[0], out[1]["packed"]
+
+    def bound_of(pa):
+        # the windows once, two bank rows a channel at least, the records
+        # and the state in and out once
+        n_samp = n * g * c * k * fast.n_eff
+        state_b = sum(x.numel() * x.element_size() for x in state)
+        return (n_samp * 2 + c * 2 * nt * fast.n_eff * 4 + pa.numel() * 4
+                + 2 * state_b, n_samp * (8 + 8 * nt))
+    jj = list(range(k))
+    return fused_case(
+        torch, "fast_loop", variant, run, plain,
+        (5 * k + 2, jj, [k + j for j in jj], 5 * k, 5 * k + 1,
+         ([3 * k + j for j in jj], [4 * k + j for j in jj])),
+        lambda p: p[0, 0, :, 2 * k:5 * k], bound_of, launches,
+        f"C={c} K={k} T={nt} G={g} blocks={n} n_eff={fast.n_eff} int8 ring")
+
+
+def fused_loop_phase(torch, np, slice_mid, slice_launches, mb_mid, mb_band,
+                     card):
+    """K3-loop and K1-loop against their plain versions at the main
+    path's shapes, each from a state the receivers reached mid-run: the
+    L1 slice's last phase-A superblock (10 ring blocks) and its second
+    phase-B superblock (10 blocks of 5 groups, K = 20); the multi-band
+    run's E1 band over its last ten phase-A blocks (float32 planes,
+    superblock_step; the pilot with the data prompt) and its second
+    phase-B superblock (K = 25, the data tap, CS25). Returns the kernel
+    lines."""
+    out = []
+    eng, (state, ring, base, n, codes, dcodes) = slice_mid["scan"]
+    out.append(scan_case(
+        torch, eng, state, ring[0], ring[1], base, eng.block_samples, n,
+        codes, dcodes, lambda: eng.superblock_ring_i8(
+            state, ring, base, n, codes, dcodes),
+        "GPS L1 C/A, phase A", slice_launches["scan_loop"]))
+    fast, (state, ring, base, n, bank) = slice_mid["fast"]
+    out.append(fast_case(torch, fast, state, ring, base, n, bank,
+                         "GPS L1 C/A, phase B (fllpll)",
+                         slice_launches["fast_loop"]))
+    calls = mb_mid["scan"]
+    eng = calls[0][0]
+    state, codes, dcodes = calls[0][1][0], calls[0][1][3], calls[0][1][4]
+    re = torch.stack([cl[1][1] for cl in calls])
+    im = torch.stack([cl[1][2] for cl in calls])
+    out.append(scan_case(
+        torch, eng, state, re.reshape(-1), im.reshape(-1), 0, re.shape[1],
+        len(calls), codes, dcodes, lambda: eng.superblock_step(
+            state, re, im, codes, dcodes),
+        "Galileo E1 pilot + data prompt, phase A", mb_band["scan_loop"]))
+    fast, (state, ring, base, n, bank) = mb_mid["fast"]
+    out.append(fast_case(torch, fast, state, ring, base, n, bank,
+                         "Galileo E1 pilot K=25 + data tap, phase B",
+                         mb_band["fast_loop"]))
+    for r in out:
+        r["card"] = card
+    report(out)
     return out
 
 
@@ -2188,11 +2468,12 @@ def loop_variants_phase(torch, np, build_dir, card):
         packed = torch.cat(packed).cpu().numpy()
         wall = time.perf_counter() - t_b
         launches = {n: v for n, v in LAUNCHES.items() if v}
-        need = ["bank_corr"] + {"kf": ["kf_step"],
-                                "gaussian": ["gaussian_step"]}.get(loop, [])
-        missing = [n for n in need if not launches.get(n)]
+        missing = [n for n in ("fast_loop",) if not launches.get(n)]
         if missing:
             fail(f"loop {loop}: kernels never launched: {missing}")
+        if launches.get("bank_corr") or launches.get("kf_step") \
+                or launches.get("gaussian_step"):
+            fail(f"loop {loop}: K1/K6 launched outside K1-loop: {launches}")
         rows = packed.reshape(-1, c, 5 * k + 4)
         valid = rows[:, :, 5 * k + 2] > 0.5
         if (rows[:, :, 5 * k + 3] > 0.5).any():
@@ -2226,8 +2507,10 @@ def loop_variants_phase(torch, np, build_dir, card):
               f" Hz, launches {launches}", file=sys.stderr, flush=True)
         kname = {"kf": "kf_step", "gaussian": "gaussian_step"}.get(loop)
         for kr in kernels:
-            if kr["name"] == kname:
+            if kr["name"] == kname:     # its body ran inside K1-loop
                 kr["launches"] = launches.get(kname, 0)
+                kr["inlined_into"] = "fast_loop"
+                kr["fused_launches"] = launches["fast_loop"]
     del ring
     for kr in kernels:
         kr["card"] = card
@@ -2273,28 +2556,35 @@ def main() -> int:
     # machine); they generate and cache the scenes the slices then load
     k5_res, acq_var = acq_variants_phase(torch, np, kbuild.BUILD_DIR, card)
     k6_res, loop_var = loop_variants_phase(torch, np, kbuild.BUILD_DIR, card)
-    slice_res, launches = slice_phase(torch, np, kbuild.BUILD_DIR, card)
-    mb_res, mb_launches = multiband_phase(torch, np, kbuild.BUILD_DIR, card)
+    slice_res, launches, slice_mid = slice_phase(torch, np,
+                                                 kbuild.BUILD_DIR, card)
+    mb_res, mb_launches, mb_mid = multiband_phase(torch, np,
+                                                  kbuild.BUILD_DIR, card)
+    e1 = mb_res["launches_by_band"]["1B"]
+    fused_res = fused_loop_phase(torch, np, slice_mid, launches, mb_mid, e1,
+                                 card)
     # each kernel line's launches: the run of the path whose shapes it
-    # was checked at (the L1 slice; the multi-band slice, where K1 and K3
-    # count the E1 band's launches: the K1 data-only variant runs on no
-    # path here, E1 being tracked on its pilot, and K2 counts both bands)
+    # was checked at (the L1 slice; the multi-band slice, where the fused
+    # kernels count the E1 band's launches and K2 both bands'). K3 and K1
+    # launch on no path now: their bodies run inside K3-loop and K1-loop,
+    # whose launches the lines carry beside them
     for r in res:
         r["launches"] = launches.get(r["name"], 0)
-    e1 = mb_res["launches_by_band"]["1B"]
     for r in e1_res:
-        if r["name"] == "multicorr":        # the pilot's and the data's
-            r["launches"] = e1["multicorr"] // 2
-        elif r["name"] == "bank_corr":
-            r["launches"] = 0 if r["variant"] == "E1-B data only" \
-                else e1["bank_corr"]
-        else:
-            r["launches"] = mb_launches[r["name"]]
+        r["launches"] = mb_launches[r["name"]]
+    for rows, counts in ((res, launches), (e1_res, e1)):
+        for r in rows:
+            if r["name"] in INLINED:
+                r["inlined_into"] = INLINED[r["name"]]
+                # the E1-B data-only engine runs on no path here (E1 is
+                # tracked on its pilot)
+                r["fused_launches"] = 0 if r["variant"] == "E1-B data only" \
+                    else counts[INLINED[r["name"]]]
     for r in res + e1_res:
         r["card"] = card
     k7_res, cond_res = conditioned_phase(torch, np, kbuild.BUILD_DIR, card)
-    print(json.dumps({"kernels": res + e1_res + k7_res + k5_res + k6_res,
-                      "build_s": build_s}), flush=True)
+    print(json.dumps({"kernels": res + e1_res + k7_res + k5_res + k6_res
+                      + fused_res, "build_s": build_s}), flush=True)
     print(json.dumps({"slice": slice_res}), flush=True)
     print(json.dumps({"multiband": mb_res}), flush=True)
     print(json.dumps({"conditioned": cond_res}), flush=True)

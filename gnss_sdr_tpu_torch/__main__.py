@@ -38,6 +38,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--doppler_step", type=float, default=None)
     p.add_argument("--pll_bw_hz", type=float, default=None)
     p.add_argument("--dll_bw_hz", type=float, default=None)
+    # accepted and, as in the JAX CLI, applied to nothing (ROADMAP §3,
+    # faults of the reference that the port mirrors)
+    p.add_argument("--cn0_min", type=float, default=None)
+    p.add_argument("--max_lock_fail", type=int, default=None)
     p.add_argument("--kml", default=None, help="write KML track here")
     p.add_argument("--telecommand_port", type=int, default=0,
                    help="TCP telecommand server (not ported yet)")

@@ -28,6 +28,8 @@ LAUNCHES: dict[str, int] = {
     "cccwsr_combine": 0,  # K5b: max(|yB+yC|^2, |yB-yC|^2) + row peaks
     "kf_step": 0,       # K6a: fast-engine KF loop step
     "gaussian_step": 0,  # K6b: fast-engine Gaussian loop step
+    "scan_loop": 0,     # K3-loop: the scan engine's fused tracking program
+    "fast_loop": 0,     # K1-loop: the fast engine's fused tracking program
 }
 
 

@@ -1,8 +1,9 @@
 """Build and load the CUDA sources of ``csrc/`` with ``nvcc`` + ``ctypes``.
 
 Each ``csrc/<name>.cu`` becomes ``build/kernels/<name>-<hash>.so`` at the
-repository root, keyed by the source's content hash, so an edited source
-is rebuilt and an unchanged one is reused. :func:`build_all` starts one
+repository root, keyed by the content hash of the source and of every
+``csrc/*.cuh`` header, so an edited source or header is rebuilt and an
+unchanged one is reused. :func:`build_all` starts one
 ``nvcc`` per source, all at once. A failed build raises with the
 compiler's output. No PyTorch headers are included, which keeps a build
 to seconds.
@@ -22,7 +23,7 @@ REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 BUILD_DIR = os.path.join(REPO_ROOT, "build", "kernels")
 SOURCES = ("multicorr", "bank_corr", "acq", "conditioner", "acq_variants",
-           "loops")
+           "loops", "scan_loop", "fast_loop")
 NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
 
@@ -49,7 +50,8 @@ def nvcc_path() -> str:
 def _target(name: str) -> tuple[str, str]:
     src = os.path.join(CSRC, f"{name}.cu")
     h = hashlib.sha1()
-    for path in (src, os.path.join(CSRC, "common.cuh")):
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC, f) for f in headers]:
         with open(path, "rb") as fh:
             h.update(fh.read())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -134,6 +136,41 @@ def check_planes(src_re, src_im, what):
             or not (src_re.is_contiguous() and src_im.is_contiguous()):
         raise ValueError(f"{what}: two contiguous 1-D planes of one dtype "
                          "and device expected")
+
+
+def state_pointers(state, spec: dict, n: int, device, what: str):
+    """A ctypes structure of one pointer per field of the NamedTuple
+    ``state``, in field order (the layout of the kernel's C struct of the
+    same fields), and the contiguous tensors it points into. ``spec``
+    maps each field to its (dtype, trailing shape); every field must be
+    [n, *trailing] of that dtype on ``device``, or this raises."""
+    names = type(state)._fields
+    if tuple(spec) != names:
+        raise ValueError(f"{what}: state fields {names} are not the "
+                         f"kernel's {tuple(spec)}")
+    tensors = []
+    for name, t in zip(names, state):
+        dtype, trailing = spec[name]
+        if t.dtype != dtype or tuple(t.shape) != (n, *trailing) \
+                or t.device != device:
+            raise ValueError(f"{what}: state field {name} must be {dtype} "
+                             f"{(n, *trailing)} on {device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+        tensors.append(t.contiguous())
+    return pointer_struct(names)(*(t.data_ptr() for t in tensors)), tensors
+
+
+_pointer_structs: dict[tuple[str, ...], type] = {}
+
+
+def pointer_struct(names: tuple[str, ...]) -> type:
+    """The ctypes structure type of one ``void*`` per name (cached)."""
+    cls = _pointer_structs.get(names)
+    if cls is None:
+        cls = type("StatePointers", (ctypes.Structure,),
+                   {"_fields_": [(n, ctypes.c_void_p) for n in names]})
+        _pointer_structs[names] = cls
+    return cls
 
 
 def stream_ptr() -> int:

@@ -8,7 +8,8 @@
 // (fast_engine.py:734-741): the wrapper's caller appends the data bank to
 // the pilot bank as one more tap, so the data prompt reads the same
 // rotated samples and the same rows j0 and j0+1. The secondary-code signs,
-// the sum over K and the loop closure stay in PyTorch.
+// the sum over K and the loop closure are the plain path's PyTorch (the
+// fused fast_loop.cu runs them on the card).
 //
 // For each channel c, period k and tap t of one 20-period group:
 //   a_j = sum_{n < n_eff} bank[c, j, t, n] * x[n] e^{-j(ph0[c,k] + step[c] n)}
@@ -23,8 +24,10 @@
 // It is bound by bytes. Design: one block per (channel, period), the ring
 // widened in the load, only rows j0 and j0+1 fetched (the TPU form
 // contracted all 17), one sincosf per sample shared by all taps, and the
-// zero tail of the bank (columns >= n_eff) never read.
-#include "common.cuh"
+// zero tail of the bank (columns >= n_eff) never read. The per-window
+// body is corr_common.cuh's k1_accumulate + k1_interp, which the fast
+// engine's fused kernel (fast_loop.cu) shares.
+#include "corr_common.cuh"
 
 namespace {
 
@@ -43,38 +46,15 @@ bank_corr_kernel(const T* __restrict__ src_re, const T* __restrict__ src_im,
   __shared__ float scratch[4 * NT * 32];
   const int ck = blockIdx.x;
   const int c = ck / K;
-  const long long s0 = base + win_start[ck];
-  const float p0 = ph0[ck], st = step[c];
   const float* b0 = bank + ((size_t)c * P1 + j0[ck]) * NT * (size_t)W;
-  const float* b1 = b0 + (size_t)NT * W;
   // acc: [0,NT) a0 re, [NT,2NT) a0 im, [2NT,3NT) a1 re, [3NT,4NT) a1 im
   float acc[4 * NT];
-#pragma unroll
-  for (int i = 0; i < 4 * NT; ++i) acc[i] = 0.0f;
-
-  for (int n = threadIdx.x; n < n_eff; n += blockDim.x) {
-    float rr, ri;
-    derotate(to_f32(src_re[s0 + n]), to_f32(src_im[s0 + n]),
-             __fadd_rn(p0, __fmul_rn(st, static_cast<float>(n))), rr, ri);
-#pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      const float q0 = __ldg(b0 + (size_t)t * W + n);
-      const float q1 = __ldg(b1 + (size_t)t * W + n);
-      acc[t] += q0 * rr;
-      acc[NT + t] += q0 * ri;
-      acc[2 * NT + t] += q1 * rr;
-      acc[3 * NT + t] += q1 * ri;
-    }
-  }
+  k1_accumulate<T, NT>(src_re, src_im, base + win_start[ck], ph0[ck],
+                       step[c], b0, b0 + (size_t)NT * W, W, n_eff, acc,
+                       threadIdx.x, blockDim.x);
   block_sum<4 * NT>(acc, scratch);
-  if (threadIdx.x == 0) {
-    const float wt = w[ck];
-#pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      out_re[ck * NT + t] = (1.0f - wt) * acc[t] + wt * acc[2 * NT + t];
-      out_im[ck * NT + t] = (1.0f - wt) * acc[NT + t] + wt * acc[3 * NT + t];
-    }
-  }
+  if (threadIdx.x == 0)
+    k1_interp<NT>(acc, w[ck], out_re + ck * NT, out_im + ck * NT);
 }
 
 template <typename T>

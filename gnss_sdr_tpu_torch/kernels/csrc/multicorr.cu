@@ -27,22 +27,16 @@
 // the int8 ring widened in the load (no dequantized copy), one sincosf
 // per sample shared by all taps, and a single block reduction at the end.
 // The E1 data-component prompt is a second launch on the same windows:
-// the pilot and data tables do not fit one block's 227 KB together.
-#include "common.cuh"
+// the pilot and data tables do not fit one block's 227 KB together. The
+// per-window body is corr_common.cuh's k3_accumulate, which the scan
+// engine's fused kernel (scan_loop.cu) shares.
+#include "corr_common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 // dynamic shared memory a launch gets without opting in
 constexpr size_t kDefaultSmem = 48 * 1024;
-
-// first sample of chip c: ceil((c + rem - shift) / step), rounded as the
-// segmented-sum form rounds it
-__device__ __forceinline__ float chip_start(int c, float rem, float shift,
-                                            float step) {
-  return ceilf(__fdiv_rn(__fsub_rn(__fadd_rn(static_cast<float>(c), rem),
-                                   shift), step));
-}
 
 template <typename T, int NT>
 __global__ void __launch_bounds__(kThreads)
@@ -64,36 +58,15 @@ multicorr_kernel(const T* __restrict__ src_re, const T* __restrict__ src_im,
     s_code[i] = code[(size_t)c * code_len + i];
   __syncthreads();
 
-  const long long s0 = base + start[c];
-  const int len = min(length[c], max_period);
-  const float rc = rem_code[c], cs = code_step[c];
-  const float rp = rem_carr[c], ps = carr_step[c];
   float sh[NT];
 #pragma unroll
   for (int t = 0; t < NT; ++t) sh[t] = shifts[t];
   float acc[2 * NT];
-#pragma unroll
-  for (int i = 0; i < 2 * NT; ++i) acc[i] = 0.0f;
-
-  for (int n = threadIdx.x; n < len; n += blockDim.x) {
-    const float fn = static_cast<float>(n);
-    float rr, ri;
-    derotate(to_f32(src_re[s0 + n]), to_f32(src_im[s0 + n]),
-             __fadd_rn(rp, __fmul_rn(ps, fn)), rr, ri);
-    const float cp = __fsub_rn(__fmul_rn(cs, fn), rc);
-#pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      int idx = static_cast<int>(floorf(__fadd_rn(cp, sh[t])));
-      while (chip_start(idx, rc, sh[t], cs) > fn) --idx;
-      while (chip_start(idx + 1, rc, sh[t], cs) <= fn) ++idx;
-      if (idx < -n_extra || idx >= code_len + n_extra) continue;
-      idx %= code_len;
-      if (idx < 0) idx += code_len;
-      const float q = s_code[idx];
-      acc[t] += q * rr;
-      acc[NT + t] += q * ri;
-    }
-  }
+  k3_accumulate<T, NT, 0>(src_re, src_im, base + start[c],
+                          min(length[c], max_period), s_code, code_len, sh,
+                          n_extra, nullptr, 0, 0, rem_code[c], code_step[c],
+                          rem_carr[c], carr_step[c], acc, threadIdx.x,
+                          blockDim.x);
   block_sum<2 * NT>(acc, scratch);
   if (threadIdx.x == 0) {
 #pragma unroll

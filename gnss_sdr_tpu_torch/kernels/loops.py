@@ -42,6 +42,36 @@ class GsParams(ctypes.Structure):
                 ("bce_nu", ctypes.c_int)]
 
 
+def kf_params(f, q, r) -> KfParams:
+    """K6a's launch parameters from F [4, 4], diag(Q) [4] and diag(R)
+    [2] (float32 numpy)."""
+    prm = KfParams()
+    prm.f[:] = [float(v) for v in np.asarray(f, np.float32).ravel()]
+    prm.q[:] = [float(v) for v in np.asarray(q, np.float32)]
+    prm.r[:] = [float(v) for v in np.asarray(r, np.float32)]
+    return prm
+
+
+def gs_params(prm: dict, n: int) -> GsParams:
+    """K6b's launch parameters of order ``n`` from
+    ``ops/gaussian.py::step_params``."""
+    g = GsParams()
+    f = np.zeros(9, np.float32)
+    f[:n * n] = np.asarray(prm["f"], np.float32).ravel()
+    q = np.zeros(3, np.float32)
+    q[:n] = np.asarray(prm["q"], np.float32)
+    g.f[:] = [float(v) for v in f]
+    g.q[:] = [float(v) for v in q]
+    g.t = float(np.float32(prm["t"]))
+    g.order = n
+    g.bayes_run = int(bool(prm["bayes_run"]))
+    g.p_transient = int(prm["p_transient"])
+    g.s_transient = int(prm["s_transient"])
+    g.bce_kappa = int(prm["bce_kappa"])
+    g.bce_nu = int(prm["bce_nu"])
+    return g
+
+
 def fma(a, b, c):
     """a * b + c with one rounding to float32 (float64 in between: the
     product of two float32 values is exact there), the kernel's
@@ -111,10 +141,7 @@ def kf_step(x, p, code_err, phase_err, f, q, r):
         raise ValueError("kf_step: x [C, 4] and p [C, 4, 4] expected")
     x, p = _f32c(x), _f32c(p)
     code_err, phase_err = _f32c(code_err), _f32c(phase_err)
-    prm = KfParams()
-    prm.f[:] = [float(v) for v in np.asarray(f, np.float32).ravel()]
-    prm.q[:] = [float(v) for v in np.asarray(q, np.float32)]
-    prm.r[:] = [float(v) for v in np.asarray(r, np.float32)]
+    prm = kf_params(f, q, r)
     x_out = torch.empty_like(x)
     p_out = torch.empty_like(p)
     delta = torch.empty_like(x)
@@ -197,20 +224,7 @@ def gaussian_step(x, p, niw_iter, niw_n, niw_mu, niw_psi, phase_err,
     x, p, niw_mu, niw_psi = _f32c(x), _f32c(p), _f32c(niw_mu), _f32c(niw_psi)
     phase_err, cn0_db_hz = _f32c(phase_err), _f32c(cn0_db_hz)
     niw_iter, niw_n = niw_iter.contiguous(), niw_n.contiguous()
-    g = GsParams()
-    f = np.zeros(9, np.float32)
-    f[:n * n] = np.asarray(prm["f"], np.float32).ravel()
-    q = np.zeros(3, np.float32)
-    q[:n] = np.asarray(prm["q"], np.float32)
-    g.f[:] = [float(v) for v in f]
-    g.q[:] = [float(v) for v in q]
-    g.t = float(np.float32(prm["t"]))
-    g.order = n
-    g.bayes_run = int(bool(prm["bayes_run"]))
-    g.p_transient = int(prm["p_transient"])
-    g.s_transient = int(prm["s_transient"])
-    g.bce_kappa = int(prm["bce_kappa"])
-    g.bce_nu = int(prm["bce_nu"])
+    g = gs_params(prm, n)
     x_out, p_out = torch.empty_like(x), torch.empty_like(p)
     it_out, n_out = torch.empty_like(niw_iter), torch.empty_like(niw_n)
     mu_out, psi_out = torch.empty_like(niw_mu), torch.empty_like(niw_psi)

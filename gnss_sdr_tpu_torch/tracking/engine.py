@@ -6,14 +6,18 @@ per period, with per-channel period lengths handled by a static maximum
 length and a valid-prefix mask; channels whose next period starts past
 the block's main region idle and resume in the next overlapped block.
 
-Each step is one launch of the K3 correlator (``kernels/multicorr.py``;
-the segmented-sum oracle on the CPU), a second one at zero shift on the
+On the card every call of ``process_block``, ``superblock_step`` and
+``superblock_ring_i8`` is one launch of K3-loop (``kernels/scan_loop.py``),
+which walks all blocks and steps of the call with the loop state on the
+card. Its plain version is :meth:`TrackingEngine._blocks_stepwise`, the
+only path on the CPU and the kernel's oracle on the card (never a
+fallback): each step is one K3 correlation (``kernels/multicorr.py``; the
+segmented-sum oracle on the CPU), a second one at zero shift on the
 data-component codes when the loops track a pilot (``track_pilot``), and
-the loop body in PyTorch:
-extended accumulation, FLL pull-in, wide and narrow gains, the DLL IIR,
-C/N0, lock tests, EVM and the packed per-period record. The Python loop
-over steps makes no device-to-host read; the host reads one packed record
-per call.
+the loop body in PyTorch (:meth:`TrackingEngine._step`): extended
+accumulation, FLL pull-in, wide and narrow gains, the DLL IIR, C/N0, lock
+tests, EVM and the packed per-period record. Neither path makes a
+device-to-host read; the host reads one packed record per call.
 
 Absolute 64-bit sample and phase bookkeeping stays on the host
 (:class:`TrackingChannels`); the device carries block-relative int32
@@ -32,6 +36,7 @@ import torch
 
 from gnss_sdr_tpu_torch.device import resolve_device
 from gnss_sdr_tpu_torch.kernels.multicorr import multicorr
+from gnss_sdr_tpu_torch.kernels.scan_loop import scan_loop
 from gnss_sdr_tpu_torch.ops import discriminators as disc
 from gnss_sdr_tpu_torch.ops import lock_detectors as lockdet
 from gnss_sdr_tpu_torch.ops import loop_filters as lf
@@ -602,8 +607,6 @@ class TrackingEngine:
                code_tables, data_code_tables=None):
         """All scan steps of one block at ``base`` in the source planes;
         then rebase the offsets. Returns (state, packed [S, C, W])."""
-        if self.cfg.track_pilot and data_code_tables is None:
-            raise ValueError("track_pilot needs data_code_tables")
         rows = []
         for _ in range(self.n_steps):
             state, packed = self._step(state, src_re, src_im, base,
@@ -614,7 +617,25 @@ class TrackingEngine:
             state.active, state.offset - bs, state.offset))
         return state, torch.stack(rows)
 
+    def _blocks_stepwise(self, state: TrackState, src_re, src_im, base: int,
+                         block_stride: int, n_blocks: int, code_tables,
+                         data_code_tables=None):
+        """The plain version of K3-loop: ``n_blocks`` blocks, block b at
+        ``base + b * block_stride`` in the source planes, one :meth:`_step`
+        a scan step. Returns (state, packed [n_blocks, S, C, W])."""
+        out = []
+        for b in range(int(n_blocks)):
+            state, packed = self._block(
+                state, src_re, src_im, int(base) + b * int(block_stride),
+                code_tables, data_code_tables)
+            out.append(packed)
+        return state, torch.stack(out)
+
     # -- drivers -------------------------------------------------------------
+    def _check_tables(self, data_code_tables) -> None:
+        if self.cfg.track_pilot and data_code_tables is None:
+            raise ValueError("track_pilot needs data_code_tables")
+
     def process_block(self, state: TrackState, block_re, block_im,
                       code_tables, data_code_tables=None):
         """Track one float32 planar block (``block_samples + overlap``
@@ -624,38 +645,41 @@ class TrackingEngine:
             raise ValueError(
                 f"block must have {self.block_samples + self.overlap} "
                 f"samples (block_samples + overlap), got {block_re.shape[0]}")
-        state, packed = self._block(state, block_re, block_im, 0, code_tables,
-                                    data_code_tables)
-        return state, {"packed": packed}
+        self._check_tables(data_code_tables)
+        state, packed = scan_loop(self, state, block_re, block_im, 0, 0, 1,
+                                  code_tables, data_code_tables)
+        return state, {"packed": packed[0]}
 
     def superblock_step(self, state: TrackState, blocks_re, blocks_im,
                         code_tables, data_code_tables=None):
         """``n`` consecutive [n, block + overlap] float32 blocks. Returns
         (state, {"packed": [n, S, C, W]})."""
-        out = []
-        for b in range(blocks_re.shape[0]):
-            state, packed = self._block(state, blocks_re[b], blocks_im[b], 0,
-                                        code_tables, data_code_tables)
-            out.append(packed)
-        return state, {"packed": torch.stack(out)}
+        n, width = blocks_re.shape
+        if width != self.block_samples + self.overlap:
+            raise ValueError(
+                f"blocks must have {self.block_samples + self.overlap} "
+                f"samples (block_samples + overlap), got {width}")
+        self._check_tables(data_code_tables)
+        state, packed = scan_loop(
+            self, state, blocks_re.reshape(-1), blocks_im.reshape(-1), 0,
+            width, n, code_tables, data_code_tables)
+        return state, {"packed": packed}
 
     def superblock_ring_i8(self, state: TrackState, ring_i8, base: int,
                            n_blocks: int, code_tables, data_code_tables=None):
         """``n_blocks`` blocks read from the device-resident planar int8
         ring [2, L]; block b covers ring[:, base + b*block_samples:]
-        [:block + overlap]. The widening to float happens inside K3's
-        loads. Returns (state, {"packed": [n_blocks, S, C, W]})."""
+        [:block + overlap]. The widening to float happens inside the
+        kernel's loads. Returns (state, {"packed": [n_blocks, S, C, W]})."""
         need = int(base) + int(n_blocks) * self.block_samples + self.overlap
         if need > ring_i8.shape[1]:
             raise ValueError("superblock reaches past the end of the ring")
-        out = []
-        for b in range(int(n_blocks)):
-            state, packed = self._block(
-                state, ring_i8[0], ring_i8[1],
-                int(base) + b * self.block_samples, code_tables,
-                data_code_tables)
-            out.append(packed)
-        return state, {"packed": torch.stack(out)}
+        self._check_tables(data_code_tables)
+        state, packed = scan_loop(self, state, ring_i8[0], ring_i8[1],
+                                  int(base), self.block_samples,
+                                  int(n_blocks), code_tables,
+                                  data_code_tables)
+        return state, {"packed": packed}
 
 
 def select(mask, a_new, a_old):

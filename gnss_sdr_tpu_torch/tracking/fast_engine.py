@@ -18,7 +18,12 @@ after which :meth:`FastTrackingEngine._close_loops` wipes off the
 secondary code and runs the same loop arithmetic as the scan engine's
 extended mode in PyTorch (the KF and Gaussian steps in their kernels).
 The data-component code of a pilot-tracked channel rides in the same
-launch as one more bank tap.
+launch as one more bank tap. That per-group path is
+:meth:`FastTrackingEngine._blocks_stepwise`: the only path on the CPU and,
+on the card, the oracle of K1-loop (``kernels/fast_loop.py``), never a
+fallback. On the card every call of ``process_block`` and
+``superblock_ring_i8`` is one launch of K1-loop, which walks all blocks
+and groups of the call with the loop state on the card.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import torch
 
 from gnss_sdr_tpu_torch.device import resolve_device
 from gnss_sdr_tpu_torch.kernels.bank_corr import bank_corr
+from gnss_sdr_tpu_torch.kernels.fast_loop import fast_loop
 from gnss_sdr_tpu_torch.ops import discriminators as disc
 from gnss_sdr_tpu_torch.ops import lock_detectors as lockdet
 from gnss_sdr_tpu_torch.ops import loop_filters as lf
@@ -599,6 +605,22 @@ class FastTrackingEngine:
             state.active, state.offset - self.block_samples, state.offset))
         return state, torch.stack(rows), torch.stack(pre), torch.stack(pim)
 
+    def _blocks_stepwise(self, state: FastState, src_re, src_im, base: int,
+                         block_stride: int, n_blocks: int, bank):
+        """The plain version of K1-loop: ``n_blocks`` blocks, block b at
+        ``base + b * block_stride`` in the source planes, one :meth:`_group`
+        a group. Returns (state, packed [n_blocks, G, C, 5K+4], prompt_re
+        [n_blocks, G, C], prompt_im)."""
+        out, pre, pim = [], [], []
+        for b in range(int(n_blocks)):
+            state, packed, p_re, p_im = self._block(
+                state, src_re, src_im, int(base) + b * int(block_stride),
+                bank)
+            out.append(packed)
+            pre.append(p_re)
+            pim.append(p_im)
+        return state, torch.stack(out), torch.stack(pre), torch.stack(pim)
+
     # -- drivers -----------------------------------------------------------------
     def process_block(self, state: FastState, block_re, block_im,
                       code_tables, data_code_tables=None):
@@ -611,9 +633,10 @@ class FastTrackingEngine:
                 f"block must have {self.block_samples + self.overlap} "
                 f"samples, got {block_re.shape[0]}")
         bank = self.get_bank(code_tables, data_code_tables)
-        state, packed, pre, pim = self._block(state, block_re, block_im, 0,
-                                              bank)
-        return state, {"packed": packed, "prompt_re": pre, "prompt_im": pim}
+        state, packed, pre, pim = fast_loop(self, state, block_re, block_im,
+                                            0, 0, 1, bank)
+        return state, {"packed": packed[0], "prompt_re": pre[0],
+                       "prompt_im": pim[0]}
 
     def superblock_ring_i8(self, state: FastState, ring_i8, base: int,
                            n_blocks: int, bank):
@@ -624,10 +647,7 @@ class FastTrackingEngine:
         need = int(base) + int(n_blocks) * self.block_samples + self.overlap
         if need > ring_i8.shape[1]:
             raise ValueError("superblock reaches past the end of the ring")
-        out = []
-        for b in range(int(n_blocks)):
-            state, packed, _, _ = self._block(
-                state, ring_i8[0], ring_i8[1],
-                int(base) + b * self.block_samples, bank)
-            out.append(packed)
-        return state, {"packed": torch.stack(out)}
+        state, packed, _, _ = fast_loop(self, state, ring_i8[0], ring_i8[1],
+                                        int(base), self.block_samples,
+                                        int(n_blocks), bank)
+        return state, {"packed": packed}

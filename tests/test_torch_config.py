@@ -104,6 +104,8 @@ need = {"gnss_sdr_tpu_torch.conditioner.chain",
         "gnss_sdr_tpu_torch.acquisition.tong",
         "gnss_sdr_tpu_torch.kernels.acq_variants",
         "gnss_sdr_tpu_torch.kernels.loops",
+        "gnss_sdr_tpu_torch.kernels.scan_loop",
+        "gnss_sdr_tpu_torch.kernels.fast_loop",
         "gnss_sdr_tpu_torch.ops.kalman",
         "gnss_sdr_tpu_torch.ops.gaussian",
         "gnss_sdr_tpu_torch.codes.galileo_e5a",
@@ -131,3 +133,28 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
                              env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+def test_cli_accepts_cn0_min_and_max_lock_fail(tmp_path, monkeypatch):
+    """``--cn0_min`` and ``--max_lock_fail`` parse as in the JAX CLI and,
+    as there, leave the configuration that ``main`` builds unchanged."""
+    import gnss_sdr_tpu_torch.__main__ as cli
+    from gnss_sdr_tpu_torch.receiver import factory
+
+    conf = tmp_path / "rx.conf"
+    conf.write_text("Channels_1C.count=2\nTracking_1C.pll_bw_hz=30\n")
+    extra = ["--cn0_min", "30", "--max_lock_fail", "10"]
+    args = cli.build_parser().parse_args(["-c", str(conf), *extra])
+    assert (args.cn0_min, args.max_lock_fail) == (30.0, 10)
+    built = []
+
+    def no_source(config):
+        # the configuration main hands to the factory; no source ends the
+        # run there
+        built.append({k: config.property(k, "") for k in config.keys()})
+    monkeypatch.setattr(factory, "make_signal_source", no_source)
+    for more in ([], extra):
+        assert cli.main(["-c", str(conf), "--device", "cpu", "--pll_bw_hz",
+                         "20", *more]) == 2
+    assert built[0] == built[1]
+    assert built[0]["Tracking_1C.pll_bw_hz"] == "20.0"

@@ -3,6 +3,8 @@ card, at small shapes. Marked ``cuda``: they skip without a GPU and run
 on one with ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 ``chip_smoke.py`` repeats the checks at the main path's shapes."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -428,3 +430,238 @@ def test_variant_and_loop_wrappers_count_launches(dev):
     loops.kf_step_plain(s.x, s.p, z, z, *_matrices(KfConfig(), 0.02))
     assert [LAUNCHES[k] for k in ("fold_wipeoff", "cccwsr_combine",
                                   "kf_step")] == [1, 1, 1]
+
+
+# ---- K3-loop and K1-loop against their plain versions (_blocks_stepwise)
+
+FS = 4e6
+
+
+def _cs25():
+    from gnss_sdr_tpu_torch.codes.galileo_e1 import E1C_SECONDARY
+
+    return np.array([1.0 if c == "0" else -1.0 for c in E1C_SECONDARY])
+
+
+def _scene(dev, n, chans, e1, seed):
+    """int8 planar ring of ``n`` samples at 4 Msps: per channel (PRN,
+    delay [samples], Doppler [Hz]) one GPS C/A signal without data bits,
+    or (``e1``) one Galileo E1 signal, E1-B with a random symbol a period
+    minus the CS25-signed E1-C, over sqrt 2; plus noise."""
+    from gnss_sdr_tpu_torch.codes import gps_l1ca_code
+    from gnss_sdr_tpu_torch.codes.galileo_e1 import galileo_e1_subchips
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(n, dtype=np.float64)
+    x = (rng.standard_normal(n) + 1j * rng.standard_normal(n)) * 8.0
+    for prn, delay, dopp in chans:
+        rate = 1.023e6 * (1.0 + dopp / 1575.42e6)
+        if e1:
+            sub = np.floor((t - delay) * rate * 12 / FS).astype(np.int64)
+            per = sub // 49104
+            sym = np.sign(rng.standard_normal(per.max() - per.min() + 1))
+            s = (galileo_e1_subchips(prn, "B", True)[sub % 49104]
+                 * sym[per - per.min()]
+                 - galileo_e1_subchips(prn, "C", True)[sub % 49104]
+                 * _cs25()[per % 25]) / np.sqrt(2.0)
+        else:
+            chip = np.floor((t - delay) * rate / FS).astype(np.int64)
+            s = gps_l1ca_code(prn).astype(np.float64)[chip % 1023]
+        x = x + 3.0 * s * np.exp(2j * np.pi * dopp * t / FS)
+    return torch.as_tensor(np.stack([np.clip(x.real, -127, 127),
+                                     np.clip(x.imag, -127, 127)])
+                           .astype(np.int8), device=dev)
+
+
+PRNS = (1, 2, 10, 12, 15, 17, 18, 21)
+
+
+def _pulled_in_scan(dev, e1, pilot=False, k_ext=1):
+    """A scan engine (8 channels, 20 ms blocks), its ring, code tables and
+    its state after 8 blocks of pull-in through the plain path."""
+    from gnss_sdr_tpu_torch.codes import gps_l1ca_code
+    from gnss_sdr_tpu_torch.codes.galileo_e1 import galileo_e1_subchips
+    from gnss_sdr_tpu_torch.tracking.engine import (TrackingConfig,
+                                                    TrackingEngine)
+
+    rng = np.random.default_rng(30 + e1 + pilot)
+    period = 16000 if e1 else 4000
+    chans = list(zip(PRNS, rng.uniform(0, period, 8),
+                     rng.uniform(-4000, 4000, 8)))
+    kw = dict(fs=FS, enable_fll_pull_in=True, pull_in_time_s=0.1,
+              extend_correlation_symbols=k_ext)
+    if e1:
+        kw.update(code_length_chips=4092, code_samples_per_chip=12,
+                  veml=True, symbols_per_bit=1, pll_bw_hz=20.0,
+                  pll_bw_narrow_hz=2.0,
+                  early_late_space_chips=0.15,
+                  very_early_late_space_chips=0.6, track_pilot=pilot)
+    eng = TrackingEngine(TrackingConfig(**kw), 8, 80000, device=dev)
+    ring = _scene(dev, 40 * 80000 + eng.overlap, chans, e1, 40 + e1)
+
+    def tables(comp):
+        rows = [galileo_e1_subchips(p, comp, True) if e1 else gps_l1ca_code(p)
+                for p in PRNS]
+        return torch.as_tensor(np.stack(rows).astype(np.float32), device=dev)
+
+    codes = tables("C" if pilot else "B")
+    dcodes = tables("B") if pilot else None
+    s = eng.init_state()
+    for ch, (_, delay, dopp) in enumerate(chans):
+        s = eng.start_channel(s, ch, dopp + 10.0,
+                              int(np.ceil(delay)) % period, period)
+    s, _ = eng._blocks_stepwise(s, ring[0], ring[1], 0, 80000, 8, codes,
+                                dcodes)
+    return eng, ring, codes, dcodes, s, chans
+
+
+def _next_periods(s, chans, base, period):
+    """Per channel, the index of its next code period in the scene."""
+    start = base + s.offset.cpu().numpy().astype(np.float64)
+    return [int(round((st - d) / period)) for st, (_, d, _) in
+            zip(start, chans)]
+
+
+def _records_close(pa, pb, valid, start, rem, dopp, cn0, prompt):
+    """The JAX suite's tolerances between two packed records: the same
+    valid rows, boundaries 0.02 samples, Doppler 1 Hz, C/N0 1 dB, prompt
+    magnitude 2% (columns given as index tuples)."""
+    assert torch.equal(pa[..., valid], pb[..., valid])
+    v = pa[..., valid] > 0.5
+    assert int(v.sum()) > 0
+    a, b = pa.double(), pb.double()
+    bnd = (a[..., start] + a[..., rem]) - (b[..., start] + b[..., rem])
+    assert float(bnd.abs().max()) < 0.02
+    assert float((a[..., dopp] - b[..., dopp])[v].abs().max()) < 1.0
+    assert float((a[..., cn0] - b[..., cn0])[v].abs().max()) < 1.0
+    ma = torch.hypot(a[..., prompt[0]], a[..., prompt[1]])
+    mb = torch.hypot(b[..., prompt[0]], b[..., prompt[1]])
+    assert float(((ma - mb).abs() / mb.clamp(min=1e-3 * float(mb.max())))
+                 .max()) < 0.02
+
+
+@pytest.mark.parametrize("case", ["l1", "e1-pilot-extended"])
+def test_scan_loop_matches_stepwise(dev, case):
+    """K3-loop over one 10-block superblock from a pulled-in state against
+    the per-step path on the card: the first step's correlations to the
+    bit (K3's own body), every record and the end state within the JAX
+    suite's tolerances; one launch per call, no K3 launch; the float32
+    planes of process_block and superblock_step likewise."""
+    from gnss_sdr_tpu_torch.codes.galileo_e1 import E1C_SECONDARY
+    from gnss_sdr_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    e1 = case != "l1"
+    eng, ring, codes, dcodes, s, chans = _pulled_in_scan(
+        dev, e1, pilot=e1, k_ext=25 if e1 else 20)
+    base = 8 * 80000
+    if e1:          # extended integration over the CS25-wiped pilot
+        for ch, p in enumerate(_next_periods(s, chans, base, 16000)):
+            s = eng.set_extended(s, ch, p % 25, E1C_SECONDARY)
+    else:
+        for ch in range(0, 8, 2):
+            s = eng.set_extended(s, ch, ch % 20)
+    sa, pa = eng._blocks_stepwise(s, ring[0], ring[1], base, 80000, 10,
+                                  codes, dcodes)
+    reset_launches()
+    sb, out = eng.superblock_ring_i8(s, ring, base, 10, codes, dcodes)
+    assert LAUNCHES["scan_loop"] == 1 and LAUNCHES["multicorr"] == 0
+    pb = out["packed"]
+    t = eng.cfg.n_taps
+    assert torch.equal(pa[0, 0, :, 4:8], pb[0, 0, :, 4:8])
+    assert torch.equal(pa[0, 0, :, 15:], pb[0, 0, :, 15:])
+    _records_close(pa, pb, 0, 1, 3, 8, 11, (4, 5))
+    _records_close(pa, pb, 0, 1, 3, 8, 11, (6, 7))
+    assert torch.equal(sa.active, sb.active)
+    assert torch.equal(sa.loss_of_lock, sb.loss_of_lock)
+    assert float((sa.carrier_doppler_hz - sb.carrier_doppler_hz).abs()
+                 .max()) < 1.0
+    bnd = (sa.offset.double() + sa.rem_code_phase_samples.double()) \
+        - (sb.offset.double() + sb.rem_code_phase_samples.double())
+    assert float(bnd.abs().max()) < 0.02
+    assert pb.shape == (10, eng.n_steps, 8, 15 + 2 * t)
+    if e1:
+        return
+    # the float32 planes: one block (process_block), two (superblock_step)
+    lo, width = base, 80000 + eng.overlap
+    blocks = ring[:, lo:lo + 80000 + width].float()
+    two = torch.stack([blocks[:, :width], blocks[:, 80000:80000 + width]], 1)
+    reset_launches()
+    s1, o1 = eng.process_block(s, two[0, 0].contiguous(),
+                               two[1, 0].contiguous(), codes)
+    s2, o2 = eng.superblock_step(s, two[0], two[1], codes)
+    assert LAUNCHES["scan_loop"] == 2 and LAUNCHES["multicorr"] == 0
+    assert torch.equal(o1["packed"], o2["packed"][0])
+    _records_close(pa[:2], o2["packed"], 0, 1, 3, 8, 11, (4, 5))
+
+
+def _fast_case(dev, case):
+    """(fast engine, ring, code tables, data code tables, start state,
+    base) of one K1-loop case, pulled in on a scan engine through the
+    plain path."""
+    from gnss_sdr_tpu_torch.codes.galileo_e1 import E1C_SECONDARY
+    from gnss_sdr_tpu_torch.tracking.fast_engine import FastTrackingEngine
+
+    e1 = case.startswith("e1")
+    pilot = case == "e1-pilot"
+    eng, ring, codes, dcodes, s, chans = _pulled_in_scan(dev, e1, pilot)
+    cfg = dataclasses.replace(
+        eng.cfg, extend_correlation_symbols={"e1-pilot": 25,
+                                             "e1-k1": 1}.get(case, 20),
+        pll_bw_narrow_hz=2.0 if pilot else 5.0)
+    loop = case if case in ("kf", "gaussian") else "fllpll"
+    fast = FastTrackingEngine(cfg, 8, {"e1-pilot": 1, "e1-k1": 25}.get(
+        case, 5), loop=loop, sec_max_len=25 if pilot else 1, device=dev)
+    fs = fast.from_track_state(s)
+    base = 8 * 80000
+    if pilot:
+        for ch, p in enumerate(_next_periods(s, chans, base, 16000)):
+            fs = fast.set_secondary(fs, ch, E1C_SECONDARY, p % 25)
+    return fast, ring, codes, dcodes, fs, base
+
+
+@pytest.mark.parametrize("case", ["fllpll", "kf", "gaussian", "e1-pilot",
+                                  "e1-k1"])
+def test_fast_loop_matches_stepwise(dev, case):
+    """K1-loop over one superblock from a pulled-in state against the
+    per-group path on the card (K1, K6 and PyTorch): the first group's
+    prompts to the bit (K1's own body), every record, the group prompts
+    and the end state within the JAX suite's tolerances; one launch per
+    call and no K1 or K6 launch, for the three loops at L1 (K = 20), the
+    E1 pilot with the data tap and CS25 (K = 25) and E1-B alone (K = 1);
+    process_block's float32 planes likewise."""
+    from gnss_sdr_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    fast, ring, codes, dcodes, s, base = _fast_case(dev, case)
+    bank = fast.get_bank(codes, dcodes)
+    nb = 2 if case == "e1-pilot" else 4
+    sa, pa, ra, ia = fast._blocks_stepwise(s, ring[0], ring[1], base,
+                                           fast.block_samples, nb, bank)
+    reset_launches()
+    sb, out = fast.superblock_ring_i8(s, ring, base, nb, bank)
+    assert LAUNCHES["fast_loop"] == 1
+    assert sum(LAUNCHES[k] for k in ("bank_corr", "kf_step",
+                                     "gaussian_step")) == 0
+    pb, k = out["packed"], fast.k
+    assert pb.shape == (nb, fast.g, 8, 5 * k + 4)
+    assert torch.equal(pa[0, 0, :, 2 * k:5 * k], pb[0, 0, :, 2 * k:5 * k])
+    for j in range(k):
+        _records_close(pa, pb, 5 * k + 2, j, k + j, 5 * k, 5 * k + 1,
+                       (3 * k + j, 4 * k + j))
+    assert torch.equal(pa[..., 5 * k + 3], pb[..., 5 * k + 3])
+    assert torch.equal(sa.loss_of_lock, sb.loss_of_lock)
+    assert float((sa.carrier_doppler_hz - sb.carrier_doppler_hz).abs()
+                 .max()) < 1.0
+    bnd = (sa.offset.double() + sa.rem_code_phase_samples.double()) \
+        - (sb.offset.double() + sb.rem_code_phase_samples.double())
+    assert float(bnd.abs().max()) < 0.02
+    if case == "fllpll":
+        width = fast.block_samples + fast.overlap
+        blk = ring[:, base:base + width].float()
+        reset_launches()
+        s1, o1 = fast.process_block(s, blk[0].contiguous(),
+                                    blk[1].contiguous(), codes)
+        assert LAUNCHES["fast_loop"] == 1
+        assert torch.equal(o1["packed"], pb[0])
+        mag = torch.hypot(o1["prompt_re"], o1["prompt_im"])
+        ref = torch.hypot(ra[0], ia[0])
+        assert float(((mag - ref).abs() / ref).max()) < 0.02

@@ -65,10 +65,14 @@ and cache the scenes the slices then load):
 9. Loop variants (``loop_variants_phase``): K6a (KF step) and K6b
    (Gaussian step) against their plain versions over 500 chained steps,
    then the L1 scene's 8 PRNs pulled in on a scan engine for 1 s from
-   the truth and run to the end of the capture by three fast engines
-   (``loop="fllpll"``, ``"kf"``, ``"gaussian"``): no loss of lock, the
-   last 10 groups' mean Doppler within 5 Hz of the truth, the last C/N0
-   within 5 dB of 45 dB-Hz.
+   the truth and run to the end of the capture by four fast engines
+   (``loop="fllpll"``, ``"kf"``, ``"gaussian"`` and
+   ``correlator="segsum"``, K1-loop with the K1-seg body): no loss of
+   lock, the last 10 groups' mean Doppler within 5 Hz of the truth, the
+   last C/N0 within 5 dB of 45 dB-Hz, one launch per engine call and no
+   call of the per-group path; the segsum engine against the bank
+   engine within test_bank_vs_segsum_consistency's bounds on all 8
+   channels (``bank_vs_segsum``).
 10. Fused phase (``fused_loop_phase``, after step 7): K3-loop and
    K1-loop against their plain versions (the engines' per-step and
    per-group paths, ``_blocks_stepwise``: K3 / K1 / K6 and PyTorch) from
@@ -78,11 +82,23 @@ and cache the scenes the slices then load):
    its second E1 phase-B superblock (K = 25, data tap, CS25). The first
    period's (group's) correlations must be equal to the bit, every
    record and the end state within the JAX suite's tolerances; both
-   paths are timed with CUDA events.
-11. Prints one ``{"kernels": [...]}`` line, one ``{"slice": ...}`` line,
+   paths are timed with CUDA events. K1-loop's segmented-sum body
+   (K1-seg) likewise, from the segsum run's second superblock and from
+   the E1 band's second phase-B superblock rebuilt on a segsum engine,
+   its first group within FIRST_SEG_TOL of the group prompt.
+11. High dynamics and the beamformer, right after step 6: K3-hd
+   (``multicorr`` with code and carrier rates) at the L1 and E1 scan
+   widths, 10 g and 1000 g, each prompt against the signal's coherent
+   sum and the kernel against its plain version (``hd_phase``); K7e
+   through ``BeamformerFilter.steered(...).apply`` on a seeded 8-antenna
+   capture of 1 s at 4 Msps with a 20 dB jammer, the JAX test's gain and
+   null bounds, then the kernel against its plain version and
+   ``torch.matmul`` (``beamformer_phase``).
+12. Prints one ``{"kernels": [...]}`` line, one ``{"slice": ...}`` line,
    one ``{"multiband": ...}`` line, one ``{"conditioned": ...}`` line,
-   one ``{"variants": ...}`` line and, last,
-   ``{"ok": true, "device": {...}}``.
+   one ``{"variants": ...}`` line, one ``{"high_dynamics": ...,
+   "beamformer": ...}`` line and, last, ``{"ok": true, "device":
+   {...}}``.
 
 Any failed check exits non-zero before the last line. The script imports
 neither JAX nor the JAX package. Without CUDA, or without the package
@@ -124,7 +140,13 @@ TOL = {"bank_corr": 1e-4, "multicorr": 1e-3, "acq_wipeoff": 1e-4,
        # (x) and each channel's largest |P| entry (P): the same roundings
        # in the same order, fused multiply-adds where the plain version
        # fuses them
-       "kf_step": 1e-5, "gaussian_step": 1e-5}
+       "kf_step": 1e-5, "gaussian_step": 1e-5,
+       # K3-hd relative to the prompt magnitude: the same float32 code
+       # index and carrier phase (formed alike), sums in another order
+       "multicorr_hd": 1e-4,
+       # K7e relative to the output rms: M = 8 products summed in order
+       # against the einsums' order
+       "beamform": 1e-5}
 #: kernels of the unconditioned slice (the production L1 receiver): K3
 #: and K1 run there only inside K3-loop and K1-loop (their bodies are
 #: inlined), so on the paths they launch only in the kernel phases and as
@@ -136,6 +158,14 @@ SLICE_KERNELS = ("scan_loop", "fast_loop", "acq_wipeoff", "acq_product",
 #: boundaries [samples], Doppler [Hz], C/N0 [dB-Hz], prompt magnitude
 #: (relative)
 FUSED_TOL = {"boundary": 0.02, "doppler": 1.0, "cn0": 1.0, "prompt": 0.02}
+#: K1-seg's first group against the float64 sums of the same chips (the
+#: plain version's boundaries and phases, ``segsum_corr(...,
+#: torch.float64)``), relative to the group's prompt magnitude: the kernel
+#: sums each chip's samples in float32 (~2e-7 of the prompt rehearsing its
+#: code on the host). The plain version differences float32 prefix sums of
+#: up to 400064 samples; its distance is reported, and held with the
+#: records to FUSED_TOL
+FIRST_SEG_TOL = 1e-5
 #: which fused kernel runs each inlined kernel's body on the paths
 INLINED = {"multicorr": "scan_loop", "bank_corr": "fast_loop",
            "kf_step": "fast_loop", "gaussian_step": "fast_loop"}
@@ -1608,7 +1638,8 @@ def multiband_phase(torch, np, build_dir, card):
                    if b.cfg.suffix == "1B").tracking.engine
     e1_fast = rec._ctx["1B"].fast
     mid = dict(scan=[c for c in scan_log.calls if c[0] is e1_scan][-10:],
-               fast=[c for c in fast_log.calls if c[0] is e1_fast][1])
+               fast=[c for c in fast_log.calls if c[0] is e1_fast][1],
+               e1_tables=(ctx.codes, ctx.data_codes))
     profile = profile_mb_phases(torch, scan_log.calls, fast_log.calls)
     return dict(
         fixes=len(sols), mean_err_last_third_m=mean_err, max_err_m=max(errs),
@@ -1710,11 +1741,14 @@ def state_maxima(torch, sa, sb):
 
 
 def fused_case(torch, name, variant, fused, plain, cols, first, bound_of,
-               launches, shape):
+               launches, shape, first_ref=None):
     """One fused kernel call (``fused``: (state, packed)) against its plain
     version (``plain``) from the same state: the kernel's launch count in
-    that call, the first period's or group's correlations to the bit
-    (``first`` selects them), the records (``cols`` for record_maxima)
+    that call, the first period's or group's correlations (``first``
+    selects them) to the bit or, given ``first_ref`` (the plain
+    version's group prompt magnitudes [C], read after ``plain`` ran, and
+    the float64 sums of the selected columns), the kernel's within
+    FIRST_SEG_TOL of those sums, the records (``cols`` for record_maxima)
     and the end state within FUSED_TOL, and the bound of the plain
     record's work (``bound_of``: bytes, operations). Times (CUDA
     events): ``ms`` per call over back-to-back calls, ``event_us`` of one
@@ -1734,7 +1768,24 @@ def fused_case(torch, name, variant, fused, plain, cols, first, bound_of,
     torch.cuda.synchronize()
     m = record_maxima(torch, pa, pb, *cols)
     m.update(state_maxima(torch, sa, sb))
-    m["first_correlations_equal"] = bool(torch.equal(first(pa), first(pb)))
+    if first_ref is None:
+        m["first_correlations_equal"] = bool(torch.equal(first(pa),
+                                                         first(pb)))
+    else:
+        # over the channels that processed the first group (a channel
+        # without a satellite correlates zero tables)
+        v0 = pa[0, 0, :, cols[0]] > 0.5
+        scale, ref = first_ref()
+        err = (first(pa) - first(pb)).abs().amax(dim=-1)[v0]
+        m["first_rel_err"] = float((err / scale[v0]).max())
+        # both against the float64 sums of the same chips; the kernel is
+        # held there (the plain version's float32 prefix sums carry an
+        # error of their own)
+        for key, p in (("kernel", pb), ("plain", pa)):
+            e64 = (first(p).double() - ref).abs().amax(dim=-1)[v0]
+            m[f"first_rel_err_f64_{key}"] = float((e64 / scale[v0]).max())
+        m["first_correlations_equal"] = \
+            m["first_rel_err_f64_kernel"] <= FIRST_SEG_TOL
     print(f"chip_smoke: fused {name} ({variant}): {json.dumps(m)}",
           file=sys.stderr, flush=True)
     for key, tol in FUSED_TOL.items():
@@ -1747,10 +1798,12 @@ def fused_case(torch, name, variant, fused, plain, cols, first, bound_of,
     symbol = f"{name}_kernel"
     return dict(
         name=name, route="cuda",
-        source=f"gnss_sdr_tpu_torch/kernels/csrc/{name}.cu",
+        source="gnss_sdr_tpu_torch/kernels/csrc/"
+        + ("fast_loop.cu" if name == "fast_loop_seg" else f"{name}.cu"),
         replaces={"scan_loop": "gnss_sdr_tpu/tracking/engine.py:474",
-                  "fast_loop": "gnss_sdr_tpu/tracking/fast_engine.py:422"}[
-                      name],
+                  "fast_loop": "gnss_sdr_tpu/tracking/fast_engine.py:422",
+                  "fast_loop_seg":
+                      "gnss_sdr_tpu/tracking/fast_engine.py:746"}[name],
         launches=launches, max_abs_err=m["prompt_abs"], rel_err=m["prompt"],
         tol=FUSED_TOL["prompt"], maxima=m, ms=time_ms(torch, fused, 5),
         device_us=kernel_device_us(torch, fused, symbol),
@@ -1795,44 +1848,75 @@ def scan_case(torch, eng, state, src_re, src_im, base, stride, n, codes,
 
 def fast_case(torch, fast, state, ring, base, n, bank, variant, launches):
     """K1-loop on ``n`` ring blocks against
-    FastTrackingEngine._blocks_stepwise."""
+    FastTrackingEngine._blocks_stepwise: the bank body, or for a segsum
+    engine (``bank`` its raw tables) the segmented sum, K1-seg."""
     k, c, g = fast.k, fast.n_channels, fast.g
-    nt = bank.shape[2]
+    seg = fast.correlator == "segsum"
+    nt = fast.n_taps + int(fast.track_pilot)
+    held = {}
 
     def plain():
-        return fast._blocks_stepwise(state, ring[0], ring[1], base,
-                                     fast.block_samples, n, bank)[:2]
+        st, pk, pre, pim = fast._blocks_stepwise(
+            state, ring[0], ring[1], base, fast.block_samples, n, bank)
+        held["group"] = torch.hypot(pre[0, 0], pim[0, 0])
+        return st, pk
+
+    def first_ref():
+        """The first group's prompt magnitudes [C] and the float64 sums of
+        its record columns 3K..5K (the data prompt, or the prompt)."""
+        step = fast.group_inputs(state)["step"]
+        cre, cim, dre, dim_ = fast.segsum_corr(
+            state, ring[0], ring[1], base, step, bank, torch.float64)
+        if dre is None:
+            pt = fast.n_taps // 2
+            dre, dim_ = cre[:, :, pt], cim[:, :, pt]
+        return held["group"], torch.cat([dre, dim_], dim=1)
 
     def run():
         out = fast.superblock_ring_i8(state, ring, base, n, bank)
         return out[0], out[1]["packed"]
 
     def bound_of(pa):
-        # the windows once, two bank rows a channel at least, the records
-        # and the state in and out once
-        n_samp = n * g * c * k * fast.n_eff
+        # the windows once (the segmented sum: its group windows), two
+        # bank rows a channel at least (or the tables), the records and
+        # the state in and out once
         state_b = sum(x.numel() * x.element_size() for x in state)
+        if seg:
+            n_samp = n * g * c * fast.lg
+            return (n_samp * 2 + bank.numel() * 4 + pa.numel() * 4
+                    + 2 * state_b, n_samp * (8 + 4 * nt))
+        n_samp = n * g * c * k * fast.n_eff
         return (n_samp * 2 + c * 2 * nt * fast.n_eff * 4 + pa.numel() * 4
                 + 2 * state_b, n_samp * (8 + 8 * nt))
     jj = list(range(k))
+    shape = f"C={c} K={k} T={nt} G={g} blocks={n} " + (
+        f"lg={fast.lg} table={fast.table_len}" if seg
+        else f"n_eff={fast.n_eff}") + " int8 ring"
     return fused_case(
-        torch, "fast_loop", variant, run, plain,
+        torch, "fast_loop_seg" if seg else "fast_loop", variant, run, plain,
         (5 * k + 2, jj, [k + j for j in jj], 5 * k, 5 * k + 1,
          ([3 * k + j for j in jj], [4 * k + j for j in jj])),
-        lambda p: p[0, 0, :, 2 * k:5 * k], bound_of, launches,
-        f"C={c} K={k} T={nt} G={g} blocks={n} n_eff={fast.n_eff} int8 ring")
+        (lambda p: p[0, 0, :, 3 * k:5 * k]) if seg
+        else (lambda p: p[0, 0, :, 2 * k:5 * k]), bound_of, launches, shape,
+        first_ref if seg else None)
 
 
 def fused_loop_phase(torch, np, slice_mid, slice_launches, mb_mid, mb_band,
-                     card):
+                     seg, card):
     """K3-loop and K1-loop against their plain versions at the main
     path's shapes, each from a state the receivers reached mid-run: the
     L1 slice's last phase-A superblock (10 ring blocks) and its second
     phase-B superblock (10 blocks of 5 groups, K = 20); the multi-band
     run's E1 band over its last ten phase-A blocks (float32 planes,
     superblock_step; the pilot with the data prompt) and its second
-    phase-B superblock (K = 25, the data tap, CS25). Returns the kernel
+    phase-B superblock (K = 25, the data tap, CS25). Then K1-loop's
+    segmented-sum body (K1-seg): the segsum run's second superblock
+    (``seg``: that call and the run's launches, from
+    ``loop_variants_phase``) and the E1 band's second phase-B superblock
+    again, on a segsum engine from the same state. Returns the kernel
     lines."""
+    from gnss_sdr_tpu_torch.tracking.fast_engine import FastTrackingEngine
+
     out = []
     eng, (state, ring, base, n, codes, dcodes) = slice_mid["scan"]
     out.append(scan_case(
@@ -1858,10 +1942,283 @@ def fused_loop_phase(torch, np, slice_mid, slice_launches, mb_mid, mb_band,
     out.append(fast_case(torch, fast, state, ring, base, n, bank,
                          "Galileo E1 pilot K=25 + data tap, phase B",
                          mb_band["fast_loop"]))
+    (seg_fast, (state, ring, base, n, tables)), seg_launches = seg
+    out.append(fast_case(torch, seg_fast, state, ring, base, n, tables,
+                         "GPS L1 C/A, segsum run's second superblock",
+                         seg_launches))
+    # no receiver builds a segsum engine: the E1 superblock is the bank
+    # engine's, rebuilt on the segmented sum (no E1 path launches it)
+    seg_e1 = FastTrackingEngine(fast.cfg, fast.n_channels, fast.g,
+                                correlator="segsum",
+                                sec_max_len=fast.sec_max_len, device="cuda")
+    state, ring, base, n, _ = mb_mid["fast"][1]
+    out.append(fast_case(torch, seg_e1, state, ring, base, n,
+                         seg_e1.get_bank(*mb_mid["e1_tables"]),
+                         "Galileo E1 pilot K=25 + data prompt, phase B, "
+                         "segsum (no E1 path runs it)", 0))
     for r in out:
         r["card"] = card
     report(out)
     return out
+
+
+# ---------------------------------------------------------------------------
+# K3-hd (the high-dynamics multicorrelator) and K7e (the beamformer)
+# ---------------------------------------------------------------------------
+
+#: 10 g along the line of sight at L1: the carrier's Doppler rate [Hz/s]
+HD_DOPPLER_RATE = 98.0665 / (299792458.0 / 1575.42e6)
+#: K3-hd's shapes: (variant, window, taps, table entries, entries a chip)
+HD_SHAPES = (("GPS L1 C/A", 4016, 3, 1023, 1),
+             ("Galileo E1 pilot", 16016, 5, 49104, 12))
+#: amplitude and noise sigma (each of re, im) of the K3-hd windows: the
+#: prompt's noise is ~1.6% of the signal's sum at L1, 0.8% at E1
+HD_AMP, HD_SIGMA = 8.0, 8.0
+
+
+def hd_windows(torch, np, rng, length, n_taps, table_len, cspc, accel):
+    """K3-hd's arguments for 8 channels: float32 windows of one +-1 table
+    read at the quadratic code phase of ``accel`` x 10 g (code rate from
+    the carrier's by 1.023 / 1575.42) under its quadratic carrier, at
+    amplitude HD_AMP in noise of HD_SIGMA; and the two rates."""
+    from gnss_sdr_tpu_torch.ops.correlator import n_extra_bins
+
+    c, fs = 8, SCENE["fs"]
+    f_dot = HD_DOPPLER_RATE * accel
+    code = np.sign(rng.standard_normal((c, table_len))).astype(np.float32)
+    step = (np.full(c, 1.023e6 * cspc / fs)
+            * (1.0 + rng.uniform(-3e-6, 3e-6, c))).astype(np.float32)
+    code_rate = np.full(c, f_dot * 1.023e6 / 1575.42e6 * cspc / fs ** 2,
+                        np.float32)
+    carr_rate = np.full(c, 2.0 * np.pi * f_dot / fs ** 2, np.float32)
+    rem = rng.uniform(0, 3, c).astype(np.float32)
+    rem_carr = rng.uniform(0, 6.28, c).astype(np.float32)
+    carr_step = rng.uniform(-0.01, 0.01, c).astype(np.float32)
+    n = np.arange(length, dtype=np.float64)
+    x = np.empty((c, length), np.complex64)
+    for i in range(c):
+        chip = np.floor(step[i] * n - rem[i] + 0.5 * code_rate[i] * n * n)
+        ph = rem_carr[i] + carr_step[i] * n + 0.5 * carr_rate[i] * n * n
+        x[i] = HD_AMP * code[i, chip.astype(np.int64) % table_len] \
+            * np.exp(1j * ph) + HD_SIGMA * (rng.standard_normal(length)
+                                            + 1j * rng.standard_normal(length))
+    spc = 0.15 * cspc if n_taps == 5 else 0.5
+    shifts = [-0.6 * cspc, -spc, 0.0, spc, 0.6 * cspc] if n_taps == 5 \
+        else [-spc, 0.0, spc]
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device="cuda")
+
+    length_c = rng.integers(length - 16, length + 1, c).astype(np.int32)
+    args = (t(x.real.astype(np.float32).ravel()),
+            t(x.imag.astype(np.float32).ravel()), 0,
+            t((np.arange(c) * length).astype(np.int32)), t(length_c),
+            t(code), t(np.asarray(shifts, np.float32)), t(rem), t(step),
+            t(rem_carr), t(carr_step), length, n_extra_bins(shifts))
+    return args, t(carr_rate), t(code_rate)
+
+
+def hd_flips(np, args, code_rate):
+    """(sample, tap) pairs whose float32 code index (as K3-hd and its plain
+    version form it) differs from the exact float64 index: chip edges the
+    float32 form moves, reported, not hidden."""
+    _, _, _, _, length, _, shifts, rem, step = args[:9]
+    n_max = int(length.max())
+    n = np.arange(n_max, dtype=np.float64)
+    f32 = np.float32
+    out = 0
+    for i in range(length.shape[0]):
+        s_, r_, q_ = (float(v[i]) for v in (step, rem, code_rate))
+        nf = n.astype(f32)
+        lin = (np.float64(s_) * nf - np.float64(r_)).astype(f32)
+        quad = (f32(0.5) * f32(q_) * nf).astype(f32)
+        base = (lin.astype(np.float64) + quad.astype(np.float64) * nf
+                ).astype(f32)
+        exact = s_ * n - r_ + 0.5 * q_ * n * n
+        for sh in shifts.cpu().numpy():
+            got = np.floor(base + f32(sh))
+            out += int(np.sum(got[:int(length[i])]
+                              != np.floor(exact + float(sh))[:int(length[i])]))
+    return out
+
+
+def hd_phase(torch, np, card):
+    """K3-hd, the high-dynamics form of ``multicorr`` (a library entry: no
+    engine passes rates, as in the JAX package), at the scan widths of
+    L1 (4016 samples, 3 taps) and E1 (16016, 5 taps, 49104 entries), C =
+    8, at 10 g and 1000 g. The path: one ``multicorr`` call with both
+    rates per shape and dynamics, the counters read around the four
+    calls; each output's prompt against the coherent sum the signal puts
+    there (amplitude x valid samples). Then each call's kernel against
+    its plain version (``multicorrelate_hd``) and the timings. Returns
+    (kernel lines, record)."""
+    from gnss_sdr_tpu_torch.kernels import LAUNCHES, reset_launches
+    from gnss_sdr_tpu_torch.kernels import multicorr as k3
+
+    rng = np.random.default_rng(2027)
+    cases = []
+    for variant, length, n_taps, table_len, cspc in HD_SHAPES:
+        for accel in (1.0, 100.0):
+            cases.append((variant, accel, *hd_windows(
+                torch, np, rng, length, n_taps, table_len, cspc, accel)))
+    torch.cuda.synchronize()
+    reset_launches()
+    outs = [k3.multicorr(*args, carr_rate, code_rate)
+            for _, _, args, carr_rate, code_rate in cases]
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    if launches != {"multicorr_hd": len(cases)}:
+        fail(f"K3-hd path: launches {launches}, not {len(cases)} "
+             "multicorr_hd")
+    rec, lines = [], []
+    for (variant, accel, args, carr_rate, code_rate), got in zip(cases,
+                                                                 outs):
+        want = k3.multicorr_plain(*args, carr_rate, code_rate)
+        mid = want[0].shape[1] // 2
+        prompt = torch.hypot(want[0][:, mid], want[1][:, mid])
+        err = torch.maximum((got[0] - want[0]).abs(),
+                            (got[1] - want[1]).abs()).amax(dim=1)
+        ideal = HD_AMP * args[4].double()
+        gain = torch.hypot(got[0][:, mid].double(), got[1][:, mid].double()) \
+            / ideal
+        # without the rates (the linear model) at the same windows
+        lin = k3.multicorr_plain(*args)
+        lin_gain = torch.hypot(lin[0][:, mid].double(),
+                               lin[1][:, mid].double()) / ideal
+        r = dict(variant=variant, accel_g=10.0 * accel,
+                 rel_err=float((err / prompt).max()),
+                 gain_min=float(gain.min()), gain_max=float(gain.max()),
+                 linear_model_gain_min=float(lin_gain.min()),
+                 floor_flips_vs_f64=hd_flips(np, args, code_rate))
+        rec.append(r)
+        print(f"chip_smoke: multicorr_hd ({variant}, {10 * accel:g} g): "
+              f"{json.dumps(r)}", file=sys.stderr, flush=True)
+        if not 0.9 < r["gain_min"] <= r["gain_max"] < 1.1:
+            fail(f"K3-hd ({variant}, {10 * accel:g} g): prompt gain "
+                 f"{r['gain_min']}..{r['gain_max']} of the signal's sum")
+        if accel != 1.0:
+            continue
+        # the kernel line of each shape: times at 10 g, errors over both
+        c = args[4].shape[0]
+        n_valid = int(args[4].clamp(max=args[11]).sum())
+        t = args[6].shape[0]
+        nb = n_valid * 8 + args[5].numel() * 4 + c * 8 * 4 + c * t * 8
+        no = n_valid * (18 + 4 * t)
+        b, by = bound_ms(nb, no)
+
+        def run(args=args, cr=carr_rate, kr=code_rate):
+            return k3.multicorr(*args, cr, kr)
+
+        def plain(args=args, cr=carr_rate, kr=code_rate):
+            return k3.multicorr_plain(*args, cr, kr)
+        lines.append(dict(
+            name="multicorr_hd", route="cuda",
+            source="gnss_sdr_tpu_torch/kernels/csrc/multicorr.cu",
+            replaces="gnss_sdr_tpu/ops/correlator.py:67",
+            launches=launches.get("multicorr_hd", 0),
+            max_abs_err=float(torch.max(torch.abs(got[0] - want[0]))),
+            rel_err=r["rel_err"], tol=TOL["multicorr_hd"],
+            ms=time_ms(torch, run),
+            device_us=kernel_device_us(torch, run, "multicorr_hd_kernel"),
+            plain_ms=time_ms(torch, plain, 10), bound_ms=b, bound_by=by,
+            library_ms=None, variant=variant,
+            shape=f"C={c} T={t} L={args[11]} table={args[5].shape[1]} "
+            "float32 windows", card=card))
+    for line in lines:
+        same = [r for r in rec if r["variant"] == line["variant"]]
+        line["rel_err"] = max(r["rel_err"] for r in same)
+        line["dynamics"] = same
+    report(lines)
+    return lines, dict(cases=rec, launches=launches, card=card)
+
+
+#: the beamformer's array: M antennas at half a wavelength, steered to
+#: 10 degrees, a 20 dB noise jammer at 55 degrees, 1 s at 4 Msps
+BF = dict(m=8, spacing=0.5, steer_deg=10.0, jam_deg=55.0, jam_db=20.0,
+          n=4_000_000, seed=11)
+
+
+def beamformer_phase(torch, np, card):
+    """K7e through ``BeamformerFilter.steered(...).apply`` on a seeded
+    8-antenna capture of 1 s at 4 Msps (a unit-power signal from the look
+    direction, a 20 dB jammer off it), the counters read around the call:
+    the JAX test's gain (``||corr| - 1| < 0.05``) and null (residual
+    jammer power under 0.2 of one antenna's) bounds on the card's output,
+    and its host->device, device and device->host split. Then the kernel
+    against its plain version (JAX's einsums) and the library call
+    (``torch.matmul`` of complex64 [1, M] by [M, N], TF32 off) on the same
+    card tensors. Returns (kernel lines, record)."""
+    from gnss_sdr_tpu_torch.conditioner.beamformer import (BeamformerFilter,
+                                                           array_response)
+    from gnss_sdr_tpu_torch.kernels import LAUNCHES, reset_launches
+    from gnss_sdr_tpu_torch.kernels import conditioner as k7
+
+    p = BF
+    m, n = p["m"], p["n"]
+    rng = np.random.default_rng(p["seed"])
+    t0 = time.perf_counter()
+    sig = ((rng.standard_normal(n) + 1j * rng.standard_normal(n))
+           / np.sqrt(2)).astype(np.complex64)
+    jam = (10.0 ** (p["jam_db"] / 20.0) * (
+        rng.standard_normal(n) + 1j * rng.standard_normal(n))
+        / np.sqrt(2)).astype(np.complex64)
+    a_sig = array_response(m, p["spacing"], p["steer_deg"]).astype(
+        np.complex64)
+    a_jam = array_response(m, p["spacing"], p["jam_deg"]).astype(
+        np.complex64)
+    x = a_sig[:, None] * sig[None, :] + a_jam[:, None] * jam[None, :]
+    gen_s = time.perf_counter() - t0
+    bf = BeamformerFilter.steered(m, p["spacing"], p["steer_deg"],
+                                  device="cuda")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    y = bf.apply(x)
+    apply_s = time.perf_counter() - t0
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    if launches != {"beamform": 1}:
+        fail(f"beamformer: launches {launches}, not one beamform")
+    corr = np.vdot(sig, y) / np.vdot(sig, sig)
+    jam_res = float(np.mean(np.abs(y - corr * sig) ** 2))
+    jam_single = float(np.mean(np.abs(x[0] - a_sig[0] * sig) ** 2))
+    rec = dict(gain=float(abs(corr)), residual_over_one_antenna=jam_res
+               / jam_single, timings=dict(bf.timings), apply_s=apply_s,
+               generate_s=gen_s, m=m, n=n, launches=launches, card=card)
+    print(f"chip_smoke: beamformer: {json.dumps(rec)}", file=sys.stderr,
+          flush=True)
+    if not abs(abs(corr) - 1.0) < 0.05:
+        fail(f"beamformer: gain {abs(corr)} in the look direction")
+    if not jam_res < 0.2 * jam_single:
+        fail(f"beamformer: jammer residual {jam_res} >= 0.2 x {jam_single}")
+
+    x_re = torch.as_tensor(np.ascontiguousarray(x.real), device="cuda")
+    x_im = torch.as_tensor(np.ascontiguousarray(x.imag), device="cuda")
+    w_re, w_im = bf._w_re, bf._w_im
+    got = torch.complex(*k7.beamform(x_re, x_im, w_re, w_im))
+    want = torch.complex(*k7.beamform_plain(x_re, x_im, w_re, w_im))
+    rms = float(torch.sqrt(torch.mean(torch.abs(want) ** 2)))
+    err = float(torch.max(torch.abs(got - want)))
+    xc = torch.complex(x_re, x_im)
+    wc = torch.complex(w_re, w_im)[None, :]
+    b, by = bound_ms(8 * m * n + 8 * n, 8 * m * n)
+    line = dict(
+        name="beamform", route="cuda",
+        source="gnss_sdr_tpu_torch/kernels/csrc/conditioner.cu",
+        replaces="gnss_sdr_tpu/conditioner/beamformer.py:20",
+        launches=launches.get("beamform", 0), max_abs_err=err,
+        rel_err=err / rms, tol=TOL["beamform"],
+        ms=time_ms(torch, lambda: k7.beamform(x_re, x_im, w_re, w_im), 20),
+        device_us=kernel_device_us(
+            torch, lambda: k7.beamform(x_re, x_im, w_re, w_im),
+            "beamform_kernel"),
+        plain_ms=time_ms(torch, lambda: k7.beamform_plain(x_re, x_im, w_re,
+                                                          w_im), 10),
+        bound_ms=b, bound_by=by,
+        library_ms=time_ms(torch, lambda: torch.matmul(wc, xc), 20),
+        variant="8-antenna ULA, 1 s at 4 Msps", shape=f"M={m} N={n}",
+        card=card)
+    report([line])
+    return [line], rec
 
 
 # ---------------------------------------------------------------------------
@@ -2396,18 +2753,69 @@ def align_to_bits(np, torch, fast, ts, into_bit):
                                            device=dev))
 
 
+#: the engines run from the pulled-in state: (name, loop, correlator)
+LOOP_RUNS = (("fllpll", "fllpll", "bank"), ("kf", "kf", "bank"),
+             ("gaussian", "gaussian", "bank"), ("segsum", "fllpll", "segsum"))
+
+
+def bank_vs_segsum(np, bank_rows, seg_rows, k, g, block_samples, base0,
+                   prns):
+    """tests/test_fast_engine.py::test_bank_vs_segsum_consistency's bounds
+    between the bank and the segsum engine's records ([groups, C, 5K + 4],
+    ``g`` groups a block of ``block_samples`` from ``base0``) on every
+    channel: the mean Doppler of the last 8 groups within 1 Hz, the last
+    C/N0 within 1 dB, each group's prompt-magnitude ratio within 2%, the
+    last 40 period boundaries within 0.02 samples. Returns the worst
+    figures; fails on a miss."""
+    n = min(len(bank_rows), len(seg_rows))
+    out = dict(doppler_hz=0.0, cn0_db=0.0, prompt_ratio=0.0, boundary=0.0)
+    for ch, prn in enumerate(prns):
+        per = []
+        for rows in (bank_rows[:n], seg_rows[:n]):
+            r = rows[:, ch].astype(np.float64)
+            valid = r[:, 5 * k + 2] > 0.5
+            prompt = np.abs(np.sum(r[:, 3 * k:4 * k]
+                                   + 1j * r[:, 4 * k:5 * k], axis=1))
+            per.append((r, valid, prompt))
+        (rb, vb, pb), (rs, vs, ps) = per
+        if not np.array_equal(vb, vs) or vb.sum() < 20:
+            fail(f"bank vs segsum: PRN {prn}: valid groups differ or fewer "
+                 f"than 20 ({int(vb.sum())}, {int(vs.sum())})")
+        d = abs(np.mean(rb[vb, 5 * k][-8:]) - np.mean(rs[vs, 5 * k][-8:]))
+        c = abs(rb[vb, 5 * k + 1][-1] - rs[vs, 5 * k + 1][-1])
+        ratio = np.max(np.abs(pb[vb] / ps[vs] - 1.0))
+        grp = np.arange(n)[vb]
+        # absolute period boundaries: the block's start in the capture,
+        # the block-relative start and the sub-sample remainder
+        blk = base0 + (grp // g) * block_samples
+        phb = (blk[:, None] + rb[vb, :k] + rb[vb, k:2 * k]).ravel()
+        phs = (blk[:, None] + rs[vs, :k] + rs[vs, k:2 * k]).ravel()
+        bnd = float(np.max(np.abs(phb[-40:] - phs[-40:])))
+        for key, v, tol in (("doppler_hz", d, 1.0), ("cn0_db", c, 1.0),
+                            ("prompt_ratio", ratio, 0.02),
+                            ("boundary", bnd, 0.02)):
+            out[key] = max(out[key], float(v))
+            if not v < tol:
+                fail(f"bank vs segsum: PRN {prn}: {key} {v} >= {tol}")
+    out["groups"] = int(n)
+    return out
+
+
 def loop_variants_phase(torch, np, build_dir, card):
-    """K6a/K6b against their plain versions, then the loop variants on
-    the slice's scene: the 8 visible PRNs started on a scan engine from
-    the scene's truth (Doppler + 25 Hz, as test_kf_loop_mode_tracks
-    starts its channel), pulled in and bit-synced over 1 s, then three
-    ``FastTrackingEngine``s (``fllpll``, ``kf``, ``gaussian``; C = 8,
-    K = 20, 5 groups a block) run the rest of the capture from that one
-    state through ``superblock_ring_i8``, with the counters read around
-    each run. The groups start at the data-bit boundaries the scene's
-    truth gives (the first second of this scene carries too few bit
-    transitions for the receiver's bit synchronizer). Returns (kernel
-    lines, the loops' record)."""
+    """K6a/K6b against their plain versions, then the loop variants and
+    the segmented-sum correlator on the slice's scene: the 8 visible PRNs
+    started on a scan engine from the scene's truth (Doppler + 25 Hz, as
+    test_kf_loop_mode_tracks starts its channel), pulled in and
+    bit-synced over 1 s, then four ``FastTrackingEngine``s (``fllpll``,
+    ``kf``, ``gaussian`` on the bank; ``fllpll`` on the segmented sum,
+    K1-seg; C = 8, K = 20, 5 groups a block) run the rest of the capture
+    from that one state through ``superblock_ring_i8``, with the counters
+    read around each run. The segsum engine's records are held against
+    the bank engine's (``bank_vs_segsum``). The groups start at the
+    data-bit boundaries the scene's truth gives (the first second of this
+    scene carries too few bit transitions for the receiver's bit
+    synchronizer). Returns (kernel lines, the loops' record, the segsum
+    run's second superblock call and its launches)."""
     from gnss_sdr_tpu_torch.codes import gps_l1ca_code
     from gnss_sdr_tpu_torch.kernels import LAUNCHES, reset_launches
     from gnss_sdr_tpu_torch.native import complex_to_quantized_i8
@@ -2449,9 +2857,10 @@ def loop_variants_phase(torch, np, build_dir, card):
                                 base0 + starts)
 
     k = cfg.extend_correlation_symbols
-    runs = {}
-    for loop in ("fllpll", "kf", "gaussian"):
-        fast = FastTrackingEngine(cfg, c, 5, loop=loop, device="cuda")
+    runs, records = {}, {}
+    for loop, loop_kind, corr in LOOP_RUNS:
+        fast = FastTrackingEngine(cfg, c, 5, correlator=corr, loop=loop_kind,
+                                  device="cuda")
         state = align_to_bits(np, torch, fast, tc.state, into_bit)
         bank = fast.get_bank(tc._code_tables_dev)
         n_blocks = (ring.shape[1] - base0 - fast.overlap) \
@@ -2460,21 +2869,29 @@ def loop_variants_phase(torch, np, build_dir, card):
         reset_launches()
         t_b = time.perf_counter()
         packed = []
-        for b0 in range(0, n_blocks, 10):
-            nb = min(10, n_blocks - b0)
-            state, out = fast.superblock_ring_i8(
-                state, ring, base0 + b0 * fast.block_samples, nb, bank)
-            packed.append(out["packed"])
-        packed = torch.cat(packed).cpu().numpy()
+        with CallLog(FastTrackingEngine, "superblock_ring_i8") as calls, \
+                CallLog(FastTrackingEngine, "_blocks_stepwise") as plain:
+            for b0 in range(0, n_blocks, 10):
+                nb = min(10, n_blocks - b0)
+                state, out = fast.superblock_ring_i8(
+                    state, ring, base0 + b0 * fast.block_samples, nb, bank)
+                packed.append(out["packed"])
+            packed = torch.cat(packed).cpu().numpy()
         wall = time.perf_counter() - t_b
         launches = {n: v for n, v in LAUNCHES.items() if v}
-        missing = [n for n in ("fast_loop",) if not launches.get(n)]
-        if missing:
-            fail(f"loop {loop}: kernels never launched: {missing}")
-        if launches.get("bank_corr") or launches.get("kf_step") \
-                or launches.get("gaussian_step"):
-            fail(f"loop {loop}: K1/K6 launched outside K1-loop: {launches}")
+        kernel = "fast_loop_seg" if corr == "segsum" else "fast_loop"
+        if launches.get(kernel) != len(calls.calls) or plain.calls:
+            fail(f"loop {loop}: launches {launches} are not one {kernel} "
+                 f"per engine call ({len(calls.calls)}), or the per-group "
+                 f"path ran ({len(plain.calls)} calls)")
+        if set(launches) != {kernel}:
+            fail(f"loop {loop}: kernels other than {kernel} launched: "
+                 f"{launches}")
+        if corr == "segsum":
+            seg_mid = (fast, calls.calls[1][1])
+            seg_launches = launches[kernel]
         rows = packed.reshape(-1, c, 5 * k + 4)
+        records[loop] = rows
         valid = rows[:, :, 5 * k + 2] > 0.5
         if (rows[:, :, 5 * k + 3] > 0.5).any():
             lost = [prns[ch] for ch in range(c)
@@ -2511,13 +2928,22 @@ def loop_variants_phase(torch, np, build_dir, card):
                 kr["launches"] = launches.get(kname, 0)
                 kr["inlined_into"] = "fast_loop"
                 kr["fused_launches"] = launches["fast_loop"]
+    consistency = bank_vs_segsum(np, records["fllpll"], records["segsum"],
+                                 k, fast.g, fast.block_samples, base0, prns)
+    print(f"chip_smoke: bank vs segsum over {consistency['groups']} groups: "
+          f"{json.dumps(consistency)}; phase-B RTF bank "
+          f"{runs['fllpll']['rtf_phase_b']:.2f}, segsum "
+          f"{runs['segsum']['rtf_phase_b']:.2f}", file=sys.stderr,
+          flush=True)
     del ring
     for kr in kernels:
         kr["card"] = card
     report(kernels)
     return kernels, dict(pull_in_s=pull_s, pull_in_blocks=PULL_IN_BLOCKS,
                          prns=prns, handoff_sample=base0, runs=runs,
-                         phase_s=time.perf_counter() - t_phase, card=card)
+                         bank_vs_segsum=consistency,
+                         phase_s=time.perf_counter() - t_phase,
+                         card=card), (seg_mid, seg_launches)
 
 
 def main() -> int:
@@ -2551,18 +2977,21 @@ def main() -> int:
 
     res = kernel_phase(torch, np, scene_geometry()[1])
     e1_res = e1_kernel_phase(torch, np, mb_geometry()[1])
+    hd_res, hd_rec = hd_phase(torch, np, card)
+    bf_res, bf_rec = beamformer_phase(torch, np, card)
     # the variant phases before the slices: torch.profiler records no
     # device time after the slices' profiled superblocks (on that card's
     # machine); they generate and cache the scenes the slices then load
     k5_res, acq_var = acq_variants_phase(torch, np, kbuild.BUILD_DIR, card)
-    k6_res, loop_var = loop_variants_phase(torch, np, kbuild.BUILD_DIR, card)
+    k6_res, loop_var, seg = loop_variants_phase(torch, np, kbuild.BUILD_DIR,
+                                                card)
     slice_res, launches, slice_mid = slice_phase(torch, np,
                                                  kbuild.BUILD_DIR, card)
     mb_res, mb_launches, mb_mid = multiband_phase(torch, np,
                                                   kbuild.BUILD_DIR, card)
     e1 = mb_res["launches_by_band"]["1B"]
     fused_res = fused_loop_phase(torch, np, slice_mid, launches, mb_mid, e1,
-                                 card)
+                                 seg, card)
     # each kernel line's launches: the run of the path whose shapes it
     # was checked at (the L1 slice; the multi-band slice, where the fused
     # kernels count the E1 band's launches and K2 both bands'). K3 and K1
@@ -2584,12 +3013,15 @@ def main() -> int:
         r["card"] = card
     k7_res, cond_res = conditioned_phase(torch, np, kbuild.BUILD_DIR, card)
     print(json.dumps({"kernels": res + e1_res + k7_res + k5_res + k6_res
-                      + fused_res, "build_s": build_s}), flush=True)
+                      + fused_res + hd_res + bf_res, "build_s": build_s}),
+          flush=True)
     print(json.dumps({"slice": slice_res}), flush=True)
     print(json.dumps({"multiband": mb_res}), flush=True)
     print(json.dumps({"conditioned": cond_res}), flush=True)
     print(json.dumps({"variants": {"acquisition": acq_var,
                                    "loops": loop_var}}), flush=True)
+    print(json.dumps({"high_dynamics": hd_rec, "beamformer": bf_rec}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -17,7 +17,10 @@ Each takes complex64 samples (1-D) and returns complex64:
 - :func:`resample` (K7d): the Mmse_Resampler's 2-tap linear interpolation
   at k * fs_in / fs_out or the Direct_Resampler's nearest-below sample,
   both with positions computed from the integer k in float64
-  (``resampler.py::mmse_resample``, ``direct_resample_indices``).
+  (``resampler.py::mmse_resample``, ``direct_resample_indices``);
+- :func:`beamform` (K7e): planar float32 antenna channels [M, N] times
+  complex weights [M] summed over the antennas, planar [N] out
+  (``beamformer.py::beamform``, ``BeamformerFilter``'s combiner).
 
 Each takes its ``*_plain`` PyTorch version for a CPU tensor and launches
 its kernel in ``csrc/conditioner.cu`` for a CUDA tensor.
@@ -139,6 +142,16 @@ def resample_plain(x, fs_in: float, fs_out: float, mode: int):
     return torch.view_as_complex((a * w0 + b * frac[:, None]).contiguous())
 
 
+def beamform_plain(x_re, x_im, w_re, w_im):
+    """JAX's ``beamform``: four einsums over the antennas, then their
+    difference and sum."""
+    y_re = torch.einsum("mn,m->n", x_re, w_re) - torch.einsum(
+        "mn,m->n", x_im, w_im)
+    y_im = torch.einsum("mn,m->n", x_re, w_im) + torch.einsum(
+        "mn,m->n", x_im, w_re)
+    return y_re, y_im
+
+
 # ---- kernels ---------------------------------------------------------------
 
 def _fn(name, argtypes):
@@ -244,3 +257,34 @@ def resample(x, fs_in: float, fs_out: float, mode: int):
     kb.check(err, "resample")
     LAUNCHES["resample"] += 1
     return y
+
+
+def beamform(x_re, x_im, w_re, w_im):
+    """The beamformer's output (y_re, y_im), float32 [N] each, of the
+    planar antenna channels ``x_re``, ``x_im`` float32 [M, N] and the
+    complex weights ``w_re``, ``w_im`` float32 [M]."""
+    if x_re.device.type == "cpu":
+        return beamform_plain(x_re, x_im, w_re, w_im)
+    if x_re.device.type != "cuda":
+        raise ValueError(f"beamform: unsupported device {x_re.device}")
+    m = x_re.shape[0]
+    for a, shape in ((x_re, x_re.shape), (x_im, x_re.shape), (w_re, (m,)),
+                     (w_im, (m,))):
+        if a.dtype != torch.float32 or a.device != x_re.device \
+                or tuple(a.shape) != tuple(shape):
+            raise ValueError("beamform: float32 [M, N] planes and [M] "
+                             "weights on one device expected")
+    if x_re.dim() != 2 or x_re.shape[1] < 1:
+        raise ValueError("beamform: [M, N] antenna channels expected")
+    x_re, x_im = x_re.contiguous(), x_im.contiguous()
+    w = torch.cat([w_re, w_im]).contiguous()
+    n = x_re.shape[1]
+    y_re = torch.empty(n, dtype=torch.float32, device=x_re.device)
+    y_im = torch.empty_like(y_re)
+    err = _fn("beamform", [kb.VP, kb.VP, kb.I32, kb.I64, kb.VP, kb.VP,
+                           kb.VP, kb.VP])(
+        x_re.data_ptr(), x_im.data_ptr(), m, n, w.data_ptr(),
+        y_re.data_ptr(), y_im.data_ptr(), kb.stream_ptr())
+    kb.check(err, "beamform")
+    LAUNCHES["beamform"] += 1
+    return y_re, y_im

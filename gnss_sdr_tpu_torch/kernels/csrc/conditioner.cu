@@ -10,7 +10,11 @@
 //       (magnitude_kernel, the radix select, notch_threshold_kernel,
 //       notch_kernel); the FFTs stay on cuFFT (torch.fft);
 //   K7d resampler.py::mmse_resample and the Direct_Resampler gather of
-//       chain.py (resample_kernel).
+//       chain.py (resample_kernel);
+//   K7e beamformer.py::beamform, the antenna-array combiner of
+//       BeamformerFilter (beamform_kernel): y = sum_m w_m x_m over planar
+//       float32 [M, N] channels, as JAX's four einsums then their
+//       difference and sum.
 //
 // All samples are interleaved complex64 (float2). Every pass reads each
 // input once and writes each output once, so all four are bound by HBM
@@ -26,6 +30,8 @@
 //       on the float bit patterns (four 8-bit passes of shared-memory
 //       histograms with integer atomics), then masks.
 //   K7d computes each output position from its integer index in float64.
+//   K7e keeps the M complex weights in shared memory and makes one pass:
+//       8 M N bytes read, 8 N written (~86 us at M = 8, N = 4 M).
 //
 // Rounding: products and sums the plain PyTorch version computes as
 // separate roundings are written with __f*_rn (no FMA contraction); the
@@ -294,6 +300,36 @@ resample_kernel(const float2* __restrict__ x, long long n_in, double ratio,
   }
 }
 
+constexpr int kMaxAntennas = 32;
+
+// y_re = sum_m x_re w_re - sum_m x_im w_im, y_im = sum_m x_re w_im +
+// sum_m x_im w_re (beamformer.py::beamform's four einsums, each summed
+// over m in order, then combined); w = [w_re (M), w_im (M)]
+__global__ void __launch_bounds__(kThreads)
+beamform_kernel(const float* __restrict__ x_re, const float* __restrict__ x_im,
+                int m_ant, long long n, const float* __restrict__ w,
+                float* __restrict__ y_re, float* __restrict__ y_im) {
+  __shared__ float s_w[2 * kMaxAntennas];
+  for (int i = threadIdx.x; i < 2 * m_ant; i += blockDim.x) s_w[i] = w[i];
+  __syncthreads();
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long k = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       k < n; k += stride) {
+    float rr = 0.0f, ii = 0.0f, ri = 0.0f, ir = 0.0f;
+    for (int m = 0; m < m_ant; ++m) {
+      const float xr = x_re[m * n + k], xi = x_im[m * n + k];
+      const float wr = s_w[m], wi = s_w[m_ant + m];
+      rr = __fmaf_rn(xr, wr, rr);
+      ii = __fmaf_rn(xi, wi, ii);
+      ri = __fmaf_rn(xr, wi, ri);
+      ir = __fmaf_rn(xi, wr, ir);
+    }
+    y_re[k] = __fsub_rn(rr, ii);
+    y_im[k] = __fadd_rn(ri, ir);
+  }
+}
+
 // blocks for a grid-stride elementwise pass over n items
 unsigned int stride_blocks(long long n) {
   const long long want = (n + kThreads - 1) / kThreads;
@@ -384,6 +420,17 @@ int resample(const float* x, long long n_in, double ratio, int mode,
                     static_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const float2*>(x), n_in, ratio, mode,
       reinterpret_cast<float2*>(y), n_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K7e. x planar float32 [m_ant, n] (re plane, im plane), w [2, m_ant].
+int beamform(const float* x_re, const float* x_im, int m_ant, long long n,
+             const float* w, float* y_re, float* y_im, void* stream) {
+  if (m_ant < 1 || m_ant > kMaxAntennas || n < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  beamform_kernel<<<stride_blocks(n), kThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(x_re, x_im, m_ant, n,
+                                                         w, y_re, y_im);
   return static_cast<int>(cudaGetLastError());
 }
 

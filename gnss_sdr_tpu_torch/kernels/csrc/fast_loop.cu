@@ -34,6 +34,22 @@
 // records once: at L1 (8 channels, 10 blocks x 5 groups x 20 periods of
 // 4001 samples, 2 rows of 3 taps a period) ~17 MB, ~5 us at 3.35 TB/s;
 // the real floor is the serial chain of groups of each channel.
+//
+// K1-seg (fast_loop_seg_kernel, a segsum engine): the correlation body is
+// the segmented sum of gnss_sdr_tpu/tracking/fast_engine.py:746-828 (the
+// group window of lg = K T + 64 samples from clip(offset, 0, total - lg),
+// rotated once; each tap's chips at the float32 boundaries ceil(r0 + (c -
+// shift) / code_step); the spill bins c = -1 and c = K Q folded onto the
+// first and last period's wrap entries; the raw code table; the data
+// prompt from the prompt tap's chips). Per period the block walks the
+// samples the taps' chips of that period hold (corr_common.cuh::
+// seg_accumulate), locating each sample's chip against those boundaries,
+// and sums them directly: at E1, 25 x 49104 bins a tap of which most hold
+// no sample, a walk over the samples reads each once. The plain version
+// differences float32 prefix sums, so the two agree to the rounding of
+// those sums, not to the bit. The pilot table stays in shared memory
+// (196 KB at E1, opted in above 48 KB), the data table is read from L2.
+// Bound: the windows once (64 MB at L1 and at E1 a superblock, ~19 us).
 #include "corr_common.cuh"
 #include "loops.cuh"
 
@@ -81,11 +97,13 @@ struct FastConsts {
   int n_blocks, n_groups, K, block_samples, block_stride, total, win_len;
   int n_eff, P1, W, cn0_samples, sec_max_len, t_int, k_t_int;
   int loop, pll_order, veml, carrier_aiding, max_code_fail, max_carr_fail;
+  int seg, lg, table_len;        // segmented sum: flag, window, table
   float t_frac_nom, t_nom_over_f0, half_t_over_f0, two_pi, inv_two_pi;
   float inv_fs, t_group, k_f32, k_t_int_f32, fs_over_chip, aiding;
   float dll_gain, cn0_a, cn0_1ma, lock_a, lock_1ma, carrier_lock_th;
-  float cn0_min, inv_n, bank_phases;
+  float cn0_min, inv_n, bank_phases, code_step_nom, cspc_over_fs;
   float dll_ic[4], dll_oc[3];
+  float shifts[5];               // tap shifts [table entries] (segsum)
   FllPllGainsF g;
   KfParams kf;
   GsParams gs;
@@ -95,6 +113,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kLoopKf = 1, kLoopGaussian = 2;
+// dynamic shared memory a launch gets without opting in
+constexpr size_t kDefaultSmem = 48 * 1024;
 
 struct FastCarry {
   int active, offset;
@@ -405,22 +425,35 @@ __device__ void close_group(const FastConsts& k, FastCarry& s,
   row[5 * K + 3] = s.loss ? 1.0f : 0.0f;
 }
 
-template <typename T, int NP, int ND>
-__global__ void __launch_bounds__(kThreads)
-fast_loop_kernel(const T* __restrict__ src_re, const T* __restrict__ src_im,
-                 long long base, const float* __restrict__ bank,
-                 FastStatePtrs in, FastStatePtrs out, FastConsts k,
-                 float* __restrict__ packed, float* __restrict__ prompt_re,
-                 float* __restrict__ prompt_im) {
+// The whole program of one channel (block c): per group the prologue,
+// the correlation of the K periods (K1's bank body or, SEG, K1-seg's
+// segmented sum), the closure and the record.
+template <typename T, int NP, int ND, bool SEG>
+__device__ __forceinline__ void fast_loop_body(
+    const T* __restrict__ src_re, const T* __restrict__ src_im,
+    long long base, const float* __restrict__ bank, const FastStatePtrs& in,
+    const FastStatePtrs& out, const FastConsts& k, float* __restrict__ packed,
+    float* __restrict__ prompt_re, float* __restrict__ prompt_im) {
   constexpr int NT = NP + ND;
+  extern __shared__ float s_tab[];   // SEG: the channel's pilot code table
   __shared__ float scratch[4 * NT * 32];
   __shared__ FastCarry st;
   __shared__ GroupInputs q;
   __shared__ float s_cre[kMaxK * NT], s_cim[kMaxK * NT];
   const int c = blockIdx.x, C = gridDim.x;
   if (threadIdx.x == 0) load_carry(in, c, k, st);
+  // K1: the channel's bank rows [P + 1][NT][W]; K1-seg: its tables
+  // [1 + ND][table_len], the pilot's staged in shared memory
+  const float* bank_c = SEG ? bank + (size_t)c * (1 + ND) * k.table_len
+                            : bank + (size_t)c * k.P1 * NT * (size_t)k.W;
+  float sh[NP];
+  if constexpr (SEG) {
+    for (int i = threadIdx.x; i < k.table_len; i += blockDim.x)
+      s_tab[i] = bank_c[i];
+#pragma unroll
+    for (int t = 0; t < NP; ++t) sh[t] = k.shifts[t];
+  }
   __syncthreads();
-  const float* bank_c = bank + (size_t)c * k.P1 * NT * (size_t)k.W;
   const int row_w = 5 * k.K + 4;
   for (int b = 0; b < k.n_blocks; ++b) {
     const long long bb = base + (long long)b * k.block_stride;
@@ -428,16 +461,42 @@ fast_loop_kernel(const T* __restrict__ src_re, const T* __restrict__ src_im,
       for (int j = threadIdx.x; j < k.K; j += blockDim.x)
         group_period(k, st, j, q);
       __syncthreads();
-      for (int j = 0; j < k.K; ++j) {
-        const float* b0 = bank_c + (size_t)q.j0[j] * NT * k.W;
-        float acc[4 * NT];
-        k1_accumulate<T, NT>(src_re, src_im, bb + q.win[j], q.ph0[j], q.step,
-                             b0, b0 + (size_t)NT * k.W, k.W, k.n_eff, acc,
-                             threadIdx.x, blockDim.x);
-        block_sum<4 * NT>(acc, scratch);
-        if (threadIdx.x == 0)
-          k1_interp<NT>(acc, q.w[j], s_cre + j * NT, s_cim + j * NT);
-        __syncthreads();
+      if constexpr (SEG) {
+        // the group window, its code rate and carrier, as segsum_corr
+        // forms them
+        const long long gw =
+            bb + min(max(st.offset, 0), k.total - k.lg);
+        const float cs = add(k.code_step_nom, mul(st.code_dop,
+                                                  k.cspc_over_fs));
+        for (int j = 0; j < k.K; ++j) {
+          float acc[2 * NT];
+          seg_accumulate<T, NP, ND>(src_re, src_im, gw, k.lg, j, k.K,
+                                    k.table_len, s_tab,
+                                    bank_c + k.table_len, sh, st.rem, cs,
+                                    st.rem_carr, q.step, acc, threadIdx.x,
+                                    blockDim.x);
+          block_sum<2 * NT>(acc, scratch);
+          if (threadIdx.x == 0) {
+#pragma unroll
+            for (int t = 0; t < NT; ++t) {
+              s_cre[j * NT + t] = acc[t < NP ? t : 2 * NP];
+              s_cim[j * NT + t] = acc[t < NP ? NP + t : 2 * NP + 1];
+            }
+          }
+          __syncthreads();
+        }
+      } else {
+        for (int j = 0; j < k.K; ++j) {
+          const float* b0 = bank_c + (size_t)q.j0[j] * NT * k.W;
+          float acc[4 * NT];
+          k1_accumulate<T, NT>(src_re, src_im, bb + q.win[j], q.ph0[j],
+                               q.step, b0, b0 + (size_t)NT * k.W, k.W,
+                               k.n_eff, acc, threadIdx.x, blockDim.x);
+          block_sum<4 * NT>(acc, scratch);
+          if (threadIdx.x == 0)
+            k1_interp<NT>(acc, q.w[j], s_cre + j * NT, s_cim + j * NT);
+          __syncthreads();
+        }
       }
       if (threadIdx.x == 0) {
         const size_t bg = (size_t)b * k.n_groups + g;
@@ -453,6 +512,52 @@ fast_loop_kernel(const T* __restrict__ src_re, const T* __restrict__ src_im,
   if (threadIdx.x == 0) store_carry(out, c, k, st);
 }
 
+// K1-loop with the code bank (the production correlator)
+template <typename T, int NP, int ND>
+__global__ void __launch_bounds__(kThreads)
+fast_loop_kernel(const T* __restrict__ src_re, const T* __restrict__ src_im,
+                 long long base, const float* __restrict__ bank,
+                 FastStatePtrs in, FastStatePtrs out, FastConsts k,
+                 float* __restrict__ packed, float* __restrict__ prompt_re,
+                 float* __restrict__ prompt_im) {
+  fast_loop_body<T, NP, ND, false>(src_re, src_im, base, bank, in, out, k,
+                                   packed, prompt_re, prompt_im);
+}
+
+// K1-loop with the segmented sum (K1-seg) as its correlation body
+template <typename T, int NP, int ND>
+__global__ void __launch_bounds__(kThreads)
+fast_loop_seg_kernel(const T* __restrict__ src_re,
+                     const T* __restrict__ src_im, long long base,
+                     const float* __restrict__ tables, FastStatePtrs in,
+                     FastStatePtrs out, FastConsts k,
+                     float* __restrict__ packed,
+                     float* __restrict__ prompt_re,
+                     float* __restrict__ prompt_im) {
+  fast_loop_body<T, NP, ND, true>(src_re, src_im, base, tables, in, out, k,
+                                  packed, prompt_re, prompt_im);
+}
+
+template <typename T, int NP, int ND, bool SEG>
+int launch_one(const T* re, const T* im, long long base, const float* bank,
+               const FastStatePtrs& in, const FastStatePtrs& out,
+               const FastConsts& k, float* packed, float* prompt_re,
+               float* prompt_im, int C, cudaStream_t stream) {
+  void (*kern)(const T*, const T*, long long, const float*, FastStatePtrs,
+               FastStatePtrs, FastConsts, float*, float*, float*) =
+      SEG ? fast_loop_seg_kernel<T, NP, ND> : fast_loop_kernel<T, NP, ND>;
+  const size_t smem = SEG ? sizeof(float) * k.table_len : 0;
+  if (smem > kDefaultSmem) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  kern<<<C, kThreads, smem, stream>>>(re, im, base, bank, in, out, k,
+                                      packed, prompt_re, prompt_im);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch(const T* re, const T* im, long long base, const float* bank,
            int n_taps, int track_pilot, FastStatePtrs in, FastStatePtrs out,
@@ -461,14 +566,20 @@ int launch(const T* re, const T* im, long long base, const float* bank,
   if (k.cn0_samples < 1 || k.cn0_samples > kMaxCn0 || k.K < 1 ||
       k.K > kMaxK || k.sec_max_len < 1 ||
       k.sec_max_len > kMaxSec || C < 1 ||
-      (k.loop == kLoopGaussian && k.gs.order != 2 && k.gs.order != 3))
+      (k.loop == kLoopGaussian && k.gs.order != 2 && k.gs.order != 3) ||
+      (k.seg && (k.table_len < 1 || k.lg < 1 || k.lg > k.total)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int key = n_taps * 2 + (track_pilot ? 1 : 0);
+  // the correlator is a compile-time parameter beside the taps (NP) and
+  // the data prompt (ND)
 #define K1L_CASE(NP, ND)                                                   \
   case NP * 2 + ND:                                                        \
-    fast_loop_kernel<T, NP, ND><<<C, kThreads, 0, stream>>>(               \
-        re, im, base, bank, in, out, k, packed, prompt_re, prompt_im);     \
-    break;
+    return k.seg ? launch_one<T, NP, ND, true>(re, im, base, bank, in,     \
+                                               out, k, packed, prompt_re,  \
+                                               prompt_im, C, stream)       \
+                 : launch_one<T, NP, ND, false>(re, im, base, bank, in,    \
+                                                out, k, packed, prompt_re, \
+                                                prompt_im, C, stream);
   switch (key) {
     K1L_CASE(3, 0)
     K1L_CASE(3, 1)
@@ -478,7 +589,6 @@ int launch(const T* re, const T* im, long long base, const float* bank,
       return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef K1L_CASE
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace

@@ -30,6 +30,24 @@
 // the pilot and data tables do not fit one block's 227 KB together. The
 // per-window body is corr_common.cuh's k3_accumulate, which the scan
 // engine's fused kernel (scan_loop.cu) shares.
+//
+// K3-hd (multicorr_hd_kernel) replaces multicorrelate's high-dynamics
+// branch (gnss_sdr_tpu/ops/correlator.py:67-78, the library API's form
+// with code_phase_rate_step; no engine passes it): the direct per-sample
+// gather at the quadratic code phase
+//   idx = floor(step n - rem + 0.5 rate n n + shift) mod code_len
+// with the carrier rem_carr + carr_step n + 0.5 carr_rate n n, over the
+// valid prefix n < length. The phases are rounded as the plain version
+// (ops/correlator.py::multicorrelate_hd) rounds them, which is how XLA's
+// CPU backend evaluates the JAX expression: two fused multiply-adds,
+// fma((0.5 rate) n, n, fma(step, n, -rem)), each formed in float64 and
+// rounded once to float32 (fma_f64 below). n n is never formed as an
+// integer square: JAX's n is float32, inexact in n n past n = 4096, and
+// at E1's three table entries a sample one ulp moves chip edges. The
+// layout is K3's: one block per channel, the table in
+// shared memory (opted in above 48 KB for E1's 49104 entries), one
+// sincosf a sample for all taps. Bound: the windows and tables once, a
+// few hundred kilobytes at C = 8; a launch costs its latency.
 #include "corr_common.cuh"
 
 namespace {
@@ -75,6 +93,110 @@ multicorr_kernel(const T* __restrict__ src_re, const T* __restrict__ src_im,
       out_im[c * NT + t] = acc[NT + t];
     }
   }
+}
+
+// a * b + c rounded once to float32 through float64 (the product of two
+// float32 values is exact there), as the plain version forms it
+__device__ __forceinline__ float fma_f64(float a, float b, float c) {
+  return __double2float_rn(__dadd_rn(
+      __dmul_rn(static_cast<double>(a), static_cast<double>(b)),
+      static_cast<double>(c)));
+}
+
+template <typename T, int NT>
+__global__ void __launch_bounds__(kThreads)
+multicorr_hd_kernel(const T* __restrict__ src_re,
+                    const T* __restrict__ src_im, long long base,
+                    const int* __restrict__ start,
+                    const int* __restrict__ length,
+                    const float* __restrict__ code, int code_len,
+                    const float* __restrict__ shifts,
+                    const float* __restrict__ rem_code,
+                    const float* __restrict__ code_step,
+                    const float* __restrict__ code_rate,
+                    const float* __restrict__ rem_carr,
+                    const float* __restrict__ carr_step,
+                    const float* __restrict__ carr_rate, int max_period,
+                    float* __restrict__ out_re, float* __restrict__ out_im) {
+  extern __shared__ float s_code[];
+  __shared__ float scratch[2 * NT * 32];
+  const int c = blockIdx.x;
+  for (int i = threadIdx.x; i < code_len; i += blockDim.x)
+    s_code[i] = code[(size_t)c * code_len + i];
+  __syncthreads();
+
+  float sh[NT];
+#pragma unroll
+  for (int t = 0; t < NT; ++t) sh[t] = shifts[t];
+  const float rc = rem_code[c], cs = code_step[c];
+  const float hc = __fmul_rn(0.5f, code_rate[c]);
+  const float rp = rem_carr[c], ps = carr_step[c];
+  // no carrier rate: + 0 leaves the linear phase as it is
+  const float hp = carr_rate ? __fmul_rn(0.5f, carr_rate[c]) : 0.0f;
+  const float mrc = -rc;
+  const int len = min(length[c], max_period);
+  const long long s0 = base + start[c];
+  float acc[2 * NT];
+#pragma unroll
+  for (int i = 0; i < 2 * NT; ++i) acc[i] = 0.0f;
+  for (int n = threadIdx.x; n < len; n += blockDim.x) {
+    const float fn = static_cast<float>(n);
+    const float phase = fma_f64(__fmul_rn(hp, fn), fn, fma_f64(ps, fn, rp));
+    float rr, ri;
+    derotate(to_f32(src_re[s0 + n]), to_f32(src_im[s0 + n]), phase, rr, ri);
+    const float cp = fma_f64(__fmul_rn(hc, fn), fn, fma_f64(cs, fn, mrc));
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      int idx = static_cast<int>(floorf(__fadd_rn(cp, sh[t]))) % code_len;
+      if (idx < 0) idx += code_len;
+      const float q = s_code[idx];
+      acc[t] = __fmaf_rn(q, rr, acc[t]);
+      acc[NT + t] = __fmaf_rn(q, ri, acc[NT + t]);
+    }
+  }
+  block_sum<2 * NT>(acc, scratch);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      out_re[c * NT + t] = acc[t];
+      out_im[c * NT + t] = acc[NT + t];
+    }
+  }
+}
+
+template <typename T>
+int launch_hd(const T* re, const T* im, long long base, const int* start,
+              const int* length, const float* code, int code_len,
+              const float* shifts, int n_taps, const float* rem_code,
+              const float* code_step, const float* code_rate,
+              const float* rem_carr, const float* carr_step,
+              const float* carr_rate, int max_period, float* out_re,
+              float* out_im, int n_channels, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * code_len;
+  const dim3 grid(n_channels), block(kThreads);
+#define K3HD_CASE(NT)                                                      \
+  case NT:                                                                 \
+    if (smem > kDefaultSmem) {                                             \
+      const cudaError_t e = cudaFuncSetAttribute(                          \
+          multicorr_hd_kernel<T, NT>,                                      \
+          cudaFuncAttributeMaxDynamicSharedMemorySize,                     \
+          static_cast<int>(smem));                                         \
+      if (e != cudaSuccess) return static_cast<int>(e);                    \
+    }                                                                      \
+    multicorr_hd_kernel<T, NT><<<grid, block, smem, stream>>>(             \
+        re, im, base, start, length, code, code_len, shifts, rem_code,     \
+        code_step, code_rate, rem_carr, carr_step, carr_rate, max_period,  \
+        out_re, out_im);                                                   \
+    break;
+  switch (n_taps) {
+    K3HD_CASE(1)
+    K3HD_CASE(3)
+    K3HD_CASE(5)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef K3HD_CASE
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -142,6 +264,38 @@ int multicorr_f32(const float* re, const float* im, long long base,
                        n_taps, rem_code, code_step, rem_carr, carr_step,
                        max_period, n_extra, out_re, out_im, n_channels,
                        static_cast<cudaStream_t>(stream));
+}
+
+// K3-hd on the int8 ring / float32 planes; carr_rate may be null (a
+// linear carrier).
+int multicorr_hd_i8(const int8_t* re, const int8_t* im, long long base,
+                    const int* start, const int* length, const float* code,
+                    int code_len, const float* shifts, int n_taps,
+                    const float* rem_code, const float* code_step,
+                    const float* code_rate, const float* rem_carr,
+                    const float* carr_step, const float* carr_rate,
+                    int max_period, float* out_re, float* out_im,
+                    int n_channels, void* stream) {
+  return launch_hd<int8_t>(re, im, base, start, length, code, code_len,
+                           shifts, n_taps, rem_code, code_step, code_rate,
+                           rem_carr, carr_step, carr_rate, max_period, out_re,
+                           out_im, n_channels,
+                           static_cast<cudaStream_t>(stream));
+}
+
+int multicorr_hd_f32(const float* re, const float* im, long long base,
+                     const int* start, const int* length, const float* code,
+                     int code_len, const float* shifts, int n_taps,
+                     const float* rem_code, const float* code_step,
+                     const float* code_rate, const float* rem_carr,
+                     const float* carr_step, const float* carr_rate,
+                     int max_period, float* out_re, float* out_im,
+                     int n_channels, void* stream) {
+  return launch_hd<float>(re, im, base, start, length, code, code_len,
+                          shifts, n_taps, rem_code, code_step, code_rate,
+                          rem_carr, carr_step, carr_rate, max_period, out_re,
+                          out_im, n_channels,
+                          static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -3,11 +3,15 @@
 :func:`fast_loop` runs ``n_blocks`` blocks of a planar sample source (the
 int8 ring or float32 planes) through every K-period group of every
 channel: the group prologue, the bank correlation (with the data tap of a
-pilot-tracked channel), the secondary wipe-off, the loop closure
+pilot-tracked channel; for a segsum engine the segmented-sum
+correlation, K1-seg, against the raw code tables, with the data prompt
+from the prompt tap's chip sums), the secondary wipe-off, the loop closure
 (``fllpll``, or the KF / Gaussian steps of K6), C/N0, locks, the packed
 per-group records and the block rebase. On the card it launches
-``csrc/fast_loop.cu`` once; on the CPU it runs the kernel's plain version,
-the engine's per-group path (``FastTrackingEngine._blocks_stepwise``).
+``csrc/fast_loop.cu`` once (counted as ``fast_loop`` or, with the
+segmented sum, ``fast_loop_seg``); on the CPU it runs the kernel's plain
+version, the engine's per-group path
+(``FastTrackingEngine._blocks_stepwise``).
 The caller's state tensors are read and never written: the kernel writes a
 fresh state.
 """
@@ -32,11 +36,12 @@ LOOPS = {"fllpll": 0, "kf": 1, "gaussian": 2}
 _INTS = ("n_blocks", "n_groups", "K", "block_samples", "block_stride",
          "total", "win_len", "n_eff", "P1", "W", "cn0_samples", "sec_max_len",
          "t_int", "k_t_int", "loop", "pll_order", "veml", "carrier_aiding",
-         "max_code_fail", "max_carr_fail")
+         "max_code_fail", "max_carr_fail", "seg", "lg", "table_len")
 _FLOATS = ("t_frac_nom", "t_nom_over_f0", "half_t_over_f0", "two_pi",
            "inv_two_pi", "inv_fs", "t_group", "k_f32", "k_t_int_f32",
            "fs_over_chip", "aiding", "dll_gain", "cn0_a", "cn0_1ma", "lock_a",
-           "lock_1ma", "carrier_lock_th", "cn0_min", "inv_n", "bank_phases")
+           "lock_1ma", "carrier_lock_th", "cn0_min", "inv_n", "bank_phases",
+           "code_step_nom", "cspc_over_fs")
 _GAINS = ("w0p2", "w0p3", "w0f", "w0f2", "a2w0f", "a3w0p2", "b3w0p", "a2w0p")
 
 
@@ -53,6 +58,7 @@ class FastConsts(ctypes.Structure):
                 + [(n, ctypes.c_float) for n in _FLOATS]
                 + [("dll_ic", ctypes.c_float * 4),
                    ("dll_oc", ctypes.c_float * 3),
+                   ("shifts", ctypes.c_float * 5),
                    ("g", FllPllGainsF), ("kf", KfParams), ("gs", GsParams)])
 
 
@@ -92,8 +98,12 @@ def fast_consts(eng) -> FastConsts:
     k.cn0_min = f32(cfg.cn0_min)
     k.inv_n = inv_f32(cfg.cn0_samples)
     k.bank_phases = float(eng.BANK_PHASES)
+    k.seg = int(eng.correlator == "segsum")
+    k.lg, k.table_len = eng.lg, eng.table_len
+    k.code_step_nom, k.cspc_over_fs = eng._code_step_nom, eng._cspc_over_fs
     k.dll_ic[:] = eng._dll_ic.cpu().tolist()
     k.dll_oc[:] = eng._dll_oc.cpu().tolist()
+    k.shifts[:eng.n_taps] = [f32(v) for v in eng._shifts]
     # fll_pll_step with the gains as Python numbers: each product of two
     # gains is formed in double and rounded once
     g = eng._gains
@@ -133,13 +143,35 @@ def state_spec(eng) -> dict:
     return spec
 
 
+def check_tables(eng, bank, dev) -> None:
+    """Raise unless ``bank`` is what ``eng.get_bank`` gives on ``dev``:
+    the code bank [C, P + 1, T (+ 1 data tap), W >= n_eff], or for the
+    segmented sum the raw tables [C, 1 (+ 1 data code), table_len];
+    contiguous float32."""
+    c, t, pilot = eng.n_channels, eng.n_taps, int(eng.track_pilot)
+    ok = bank.dtype == torch.float32 and bank.is_contiguous() \
+        and bank.device == dev
+    if eng.correlator == "segsum":
+        if not (ok and tuple(bank.shape) == (c, 1 + pilot, eng.table_len)):
+            raise ValueError("fast_loop: contiguous float32 code tables "
+                             "[C, 1 (+1), table_len] from get_bank on the "
+                             "source's device expected")
+    elif not (ok and bank.dim() == 4
+              and tuple(bank.shape[:3]) == (c, eng.BANK_PHASES + 1,
+                                            t + pilot)
+              and bank.shape[3] >= eng.n_eff):
+        raise ValueError("fast_loop: contiguous float32 bank [C, P+1, T, W] "
+                         "from get_bank on the source's device expected")
+
+
 def fast_loop(eng, state, src_re, src_im, base: int, block_stride: int,
               n_blocks: int, bank):
     """(new state, packed [n_blocks, G, C, 5K + 4], prompt_re [n_blocks,
     G, C], prompt_im) after ``n_blocks`` blocks of fast engine ``eng``;
     block b reads ``src[base + b * block_stride:][:block_samples +
-    overlap]``; ``bank`` [C, P + 1, T (+ 1 data tap), W] from
-    ``eng.get_bank``."""
+    overlap]``; ``bank`` from ``eng.get_bank``: the code bank [C, P + 1,
+    T (+ 1 data tap), W], or a segsum engine's raw tables [C, 1 (+ 1),
+    table_len]."""
     if src_re.device.type == "cpu":
         return eng._blocks_stepwise(state, src_re, src_im, base,
                                     block_stride, n_blocks, bank)
@@ -153,13 +185,7 @@ def fast_loop(eng, state, src_re, src_im, base: int, block_stride: int,
     if base < 0 or n_blocks < 1 or block_stride < 0 \
             or base + (n_blocks - 1) * block_stride + total > src_re.shape[0]:
         raise ValueError("fast_loop: blocks outside the source")
-    if bank.dtype != torch.float32 or not bank.is_contiguous() \
-            or bank.device != dev or bank.dim() != 4 \
-            or tuple(bank.shape[:3]) != (c, eng.BANK_PHASES + 1,
-                                         t + int(pilot)) \
-            or bank.shape[3] < eng.n_eff:
-        raise ValueError("fast_loop: contiguous float32 bank [C, P+1, T, W] "
-                         "from get_bank on the source's device expected")
+    check_tables(eng, bank, dev)
     if src_re.dtype == torch.int8:
         fn = "fast_loop_i8"
     elif src_re.dtype == torch.float32:
@@ -174,7 +200,7 @@ def fast_loop(eng, state, src_re, src_im, base: int, block_stride: int,
     if k is None:
         k = eng._fast_consts = fast_consts(eng)
     k.n_blocks, k.block_stride = int(n_blocks), int(block_stride)
-    k.W = bank.shape[3]
+    k.W = bank.shape[-1]
     packed = torch.empty((n_blocks, eng.g, c, 5 * eng.k + 4),
                          dtype=torch.float32, device=dev)
     prompt_re = torch.empty((n_blocks, eng.g, c), dtype=torch.float32,
@@ -188,5 +214,5 @@ def fast_loop(eng, state, src_re, src_im, base: int, block_stride: int,
             t, int(pilot), s_in, s_out, k, packed.data_ptr(),
             prompt_re.data_ptr(), prompt_im.data_ptr(), c, kb.stream_ptr())
     kb.check(err, fn)
-    LAUNCHES["fast_loop"] += 1
+    LAUNCHES["fast_loop_seg" if k.seg else "fast_loop"] += 1
     return new, packed, prompt_re, prompt_im

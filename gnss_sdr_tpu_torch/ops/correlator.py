@@ -8,9 +8,15 @@ segmented-sum form of gnss-sdr's resampler + rotator-dot-product pair
   code-table units (volk_gnsssdr_32f_xn_resampler_32f_xn.h:62-80);
 - carrier wipe-off: x[n] * e^{-j(rem_carr + step*n + 0.5*rate*n^2)}.
 
+With a code phase rate (high dynamics) the code index becomes quadratic
+and :func:`multicorrelate_hd` gathers it per sample.
+
 It is the oracle that the CPU tests hold against the JAX package and the
 plain version that the K3 kernel (``kernels/csrc/multicorr.cu``, the
-direct per-sample form) is held against on the card.
+direct per-sample form) is held against on the card; its high-dynamics
+branch (a code phase rate given) is the plain version of K3-hd
+(``multicorr_hd_kernel``, launched by ``kernels/multicorr.py::multicorr``
+with the rates).
 """
 
 from __future__ import annotations
@@ -24,6 +30,52 @@ def n_extra_bins(shifts) -> int:
     """Spill bins each side of the code: the widest tap shift, rounded up,
     plus one (computed on the host from the constant tap shifts)."""
     return int(math.ceil(float(max(abs(float(s)) for s in shifts)))) + 1
+
+
+def fma_f32(a, b, c):
+    """``a * b + c`` rounded once to float32, formed in float64 (the
+    product of two float32 values is exact there): XLA's CPU backend fuses
+    the high-dynamics branch's multiply-adds this way, which decides chip
+    edges at E1's three table entries a sample."""
+    return (a.to(torch.float64) * b.to(torch.float64)
+            + c.to(torch.float64)).to(torch.float32)
+
+
+def multicorrelate_hd(x_re, x_im, code_table, shifts, rem_code_phase,
+                      code_phase_step, rem_carr_phase_rad,
+                      carr_phase_step_rad, length, carr_phase_rate_step_rad,
+                      code_phase_rate_step):
+    """The high-dynamics branch (quadratic code phase): the direct
+    per-sample gather, as the JAX package evaluates it on the CPU (its
+    products and sums fused as XLA fuses them: ``fma(0.5 rate n, n,
+    fma(step, n, -rem))`` for the code, ``fma(0.5 carr_rate n, n,
+    fma(carr_step, n, rem_carr))`` for the carrier). The plain version of
+    K3-hd (``multicorr_hd_kernel``)."""
+    dev = x_re.device
+    L = x_re.shape[-1]
+    code_len = code_table.shape[-1]
+    n = torch.arange(L, dtype=torch.float32, device=dev)
+    valid = n < length[..., None].to(torch.float32)
+    phase = fma_f32(carr_phase_step_rad[..., None], n,
+                    rem_carr_phase_rad[..., None])
+    if carr_phase_rate_step_rad is not None:
+        phase = fma_f32(0.5 * carr_phase_rate_step_rad[..., None] * n, n,
+                        phase)
+    c = torch.cos(phase)
+    s = torch.sin(phase)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    rot_re = torch.where(valid, x_re * c + x_im * s, zero)
+    rot_im = torch.where(valid, x_im * c - x_re * s, zero)
+    base = fma_f32(code_phase_step[..., None], n, -rem_code_phase[..., None])
+    base = fma_f32(0.5 * code_phase_rate_step[..., None] * n, n, base)
+    idx = torch.floor(base[..., None, :] + shifts[:, None]).to(torch.int64)
+    idx = torch.remainder(idx, code_len)
+    table = code_table[..., None, :].expand(
+        *code_table.shape[:-1], shifts.shape[0], code_len)
+    codes = torch.gather(table, -1, idx)
+    corr_re = torch.sum(codes * rot_re[..., None, :], dim=-1)
+    corr_im = torch.sum(codes * rot_im[..., None, :], dim=-1)
+    return corr_re, corr_im
 
 
 def multicorrelate(
@@ -46,6 +98,11 @@ def multicorrelate(
     length and ``length`` masks the live prefix. ``n_extra`` is
     :func:`n_extra_bins` of ``shifts``; pass it to keep the call free of
     a device-to-host read."""
+    if code_phase_rate_step is not None:
+        return multicorrelate_hd(
+            x_re, x_im, code_table, shifts, rem_code_phase, code_phase_step,
+            rem_carr_phase_rad, carr_phase_step_rad, length,
+            carr_phase_rate_step_rad, code_phase_rate_step)
     dev = x_re.device
     L = x_re.shape[-1]
     code_len = code_table.shape[-1]
@@ -61,19 +118,6 @@ def multicorrelate(
     rot_re = torch.where(valid, x_re * c + x_im * s, zero)
     rot_im = torch.where(valid, x_im * c - x_re * s, zero)
     n_taps = shifts.shape[0]
-
-    if code_phase_rate_step is not None:
-        # high dynamics (quadratic code phase): direct per-sample gather
-        base = code_phase_step[..., None] * n - rem_code_phase[..., None]
-        base = base + 0.5 * code_phase_rate_step[..., None] * n * n
-        idx = torch.floor(base[..., None, :] + shifts[:, None]).to(torch.int64)
-        idx = torch.remainder(idx, code_len)
-        table = code_table[..., None, :].expand(
-            *code_table.shape[:-1], n_taps, code_len)
-        codes = torch.gather(table, -1, idx)
-        corr_re = torch.sum(codes * rot_re[..., None, :], dim=-1)
-        corr_im = torch.sum(codes * rot_im[..., None, :], dim=-1)
-        return corr_re, corr_im
 
     # ---- segmented-sum evaluation (exact) -------------------------------
     zeros1 = torch.zeros(rot_re.shape[:-1] + (1,), dtype=torch.float32,

@@ -1,7 +1,10 @@
 """Fast steady-state tracking engine: group-batched correlation.
 
-Port of ``gnss_sdr_tpu/tracking/fast_engine.py`` with the code-bank
-correlator and its three loops: the FLL/PLL loop (``loop="fllpll"``),
+Port of ``gnss_sdr_tpu/tracking/fast_engine.py`` with both correlators,
+the code bank (``correlator="bank"``, the default) and the segmented sum
+(``correlator="segsum"``: rotated prefix sums read at the chip
+boundaries, contracted with the raw code tables), and its three loops:
+the FLL/PLL loop (``loop="fllpll"``),
 the 4-state code/carrier KF (``loop="kf"``, the K6a kernel) and the
 Gaussian carrier KF with the DLL filter (``loop="gaussian"``, K6b). The
 default serves the production steady state of GPS L1 C/A (K = 20)
@@ -18,12 +21,14 @@ after which :meth:`FastTrackingEngine._close_loops` wipes off the
 secondary code and runs the same loop arithmetic as the scan engine's
 extended mode in PyTorch (the KF and Gaussian steps in their kernels).
 The data-component code of a pilot-tracked channel rides in the same
-launch as one more bank tap. That per-group path is
+launch as one more bank tap; with the segmented sum, its prompt comes
+from the prompt tap's chip sums. That per-group path is
 :meth:`FastTrackingEngine._blocks_stepwise`: the only path on the CPU and,
 on the card, the oracle of K1-loop (``kernels/fast_loop.py``), never a
 fallback. On the card every call of ``process_block`` and
 ``superblock_ring_i8`` is one launch of K1-loop, which walks all blocks
-and groups of the call with the loop state on the card.
+and groups of the call with the loop state on the card (with the
+segmented sum as its correlation body, K1-seg, for a segsum engine).
 """
 
 from __future__ import annotations
@@ -104,10 +109,8 @@ class FastTrackingEngine:
                  device="cuda"):
         if cfg.extend_correlation_symbols < 1:
             raise ValueError("extend_correlation_symbols must be >= 1")
-        if correlator != "bank":
-            raise NotImplementedError(
-                "only the bank correlator is ported; the segsum correlator "
-                "(K1-seg) is queued in ROADMAP")
+        if correlator not in ("bank", "segsum"):
+            raise ValueError("correlator must be 'bank' or 'segsum'")
         if loop not in ("fllpll", "kf", "gaussian"):
             raise ValueError("loop must be 'fllpll', 'kf' or 'gaussian'")
         self.device = resolve_device(device)
@@ -133,7 +136,14 @@ class FastTrackingEngine:
         self.block_samples = self.g * self.k * spc
         # per-period correlation window, as the JAX package sizes it
         self.win_len = int(math.ceil((self.max_period + 127) / 128)) * 128
-        self.overlap = self.k * spc + self.win_len + 32
+        if correlator == "bank":
+            self.overlap = self.k * spc + self.win_len + 32
+        else:
+            self.overlap = self.k * spc + self.max_period
+        #: the segmented sum's group window [samples]
+        self.lg = self.k * spc + 64
+        #: code-table entries a period (the segmented sum's chip bins)
+        self.table_len = cfg.code_length_chips * cfg.code_samples_per_chip
         self.n_taps = cfg.n_taps
         #: longest secondary code wiped off on the device (CS25 = 25);
         #: 1 = no wipe-off
@@ -166,6 +176,10 @@ class FastTrackingEngine:
         self._t_frac_nom = f32(t_nom_f64 - math.floor(t_nom_f64))
         self._t_nom_over_f0 = f32(t_nom_f64 / cfg.chip_rate_cps)
         self._half_t_over_f0 = f32(0.5 * t_nom_f64 / cfg.chip_rate_cps)
+        self._code_step_nom = f32(cfg.chip_rate_cps / cfg.fs
+                                  * cfg.code_samples_per_chip)
+        self._cspc_over_fs = f32(F32(cfg.code_samples_per_chip)
+                                 / F32(cfg.fs))
         self._aiding = f32(F32(cfg.chip_rate_cps) / F32(cfg.carrier_hz))
         self._k_f32 = f32(self.k)
         self._k_t_int_f32 = f32(self.k * self._t_int)
@@ -323,11 +337,15 @@ class FastTrackingEngine:
 
     # -- code bank ------------------------------------------------------------
     def get_bank(self, code_tables, data_code_tables=None) -> torch.Tensor:
-        """[C, P+1, T, win_len] resampled-code bank on the device, cached
-        by the identity of the tables (a held reference keeps their ids
-        from being recycled). A pilot-tracked engine appends the data
+        """What the correlator reads, on the device, cached by the
+        identity of the tables (a held reference keeps their ids from
+        being recycled). The bank correlator: the [C, P+1, T, win_len]
+        resampled-code bank; a pilot-tracked engine appends the data
         code's single zero-shift bank (``_get_data_bank``'s role) as tap T,
-        so K1 returns the data prompt beside the pilot taps."""
+        so K1 returns the data prompt beside the pilot taps. The segmented
+        sum: the raw tables [C, 1, table_len], the data code's stacked as
+        row 1 on a pilot-tracked engine (the JAX engine passes both as
+        they are)."""
         if self.track_pilot and data_code_tables is None:
             raise ValueError("track_pilot engine needs data_code_tables")
         cache = self._bank_cache
@@ -338,6 +356,14 @@ class FastTrackingEngine:
         def host(a):
             return a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
 
+        if self.correlator == "segsum":
+            rows = [host(code_tables)]
+            if self.track_pilot:
+                rows.append(host(data_code_tables))
+            out = torch.as_tensor(np.stack(rows, axis=1).astype(np.float32),
+                                  device=self.device)
+            self._bank_cache = (code_tables, data_code_tables, out)
+            return out
         bank = self.build_bank(host(code_tables), self._shifts)
         if self.track_pilot:
             bank = np.concatenate([bank, self.build_bank(
@@ -406,9 +432,16 @@ class FastTrackingEngine:
                     j0=j0, w=w)
 
     def _group(self, s: FastState, src_re, src_im, base: int, bank):
-        """Correlate one K-period group (K1) and close the loops."""
+        """Correlate one K-period group (K1, or the segmented sum) and
+        close the loops."""
         process = s.active & (s.offset < self.block_samples) & ~s.loss_of_lock
         q = self.group_inputs(s)
+        if self.correlator == "segsum":
+            corr_re, corr_im, data_re, data_im = self.segsum_corr(
+                s, src_re, src_im, base, q["step"], bank)
+            return self._close_loops(s, process, q["t_frac"], q["starts"],
+                                     q["rems"], corr_re, corr_im, q["step"],
+                                     data_re, data_im)
         corr_re, corr_im = bank_corr(src_re, src_im, base, q["win_start"],
                                      q["ph0"], q["step"], bank, q["j0"],
                                      q["w"], self.n_eff)
@@ -421,6 +454,81 @@ class FastTrackingEngine:
         return self._close_loops(s, process, q["t_frac"], q["starts"],
                                  q["rems"], corr_re, corr_im, q["step"],
                                  data_re, data_im)
+
+    def segsum_corr(self, s: FastState, src_re, src_im, base: int, step,
+                    tables, dtype=torch.float32):
+        """The segmented-sum correlation of one group, line for line the
+        JAX engine's (``group_body`` after ``# ---- segmented-sum
+        correlation``): the group's ``lg`` samples from ``clip(offset, 0,
+        total - lg)`` rotated once, prefix sums with a leading zero read at
+        each tap's chip boundaries ``clip(ceil(r0 + (cc - shift) /
+        code_step), 0, lg)`` for cc = -1 .. n_chips + 1, the chip sums
+        (their differences) with the two spill bins folded into the edge
+        periods' wrap chips, contracted with the code table ``tables[:,
+        0]``. A pilot-tracked engine's data prompt contracts the prompt
+        tap's chip sums with the data code ``tables[:, 1]``. ``dtype``
+        is the float32 of the JAX engine; float64 sums the same chips of
+        the same float32 boundaries and phases without rounding error (a
+        reference for the float32 prefix sums). Returns (corr_re, corr_im
+        [C, K, T], data_re, data_im [C, K] or None)."""
+        k_ext, lg, q_len = self.k, self.lg, self.table_len
+        total = self.block_samples + self.overlap
+        dev = s.offset.device
+        group_start = torch.clamp(s.offset, 0, total - lg)            # [C]
+        idx = (int(base) + group_start.to(torch.int64))[:, None] \
+            + torch.arange(lg, device=dev)
+        gw_re = src_re[idx].to(dtype)
+        gw_im = src_im[idx].to(dtype)
+        n = torch.arange(lg, dtype=torch.float32, device=dev)
+        phase = (s.rem_carr_phase_rad[:, None]
+                 + step[:, None] * n[None, :]).to(dtype)
+        c_ = torch.cos(phase)
+        s_ = torch.sin(phase)
+        rot_re = gw_re * c_ + gw_im * s_
+        rot_im = gw_im * c_ - gw_re * s_
+        zeros1 = torch.zeros((rot_re.shape[0], 1), dtype=dtype, device=dev)
+        p_re = torch.cat([zeros1, torch.cumsum(rot_re, dim=1)], dim=1)
+        p_im = torch.cat([zeros1, torch.cumsum(rot_im, dim=1)], dim=1)
+
+        # chip boundaries: chip cc of tap t starts at sample
+        # ceil(r0 + (cc - shift_t) / code_step) of the group window
+        code_step = self._code_step_nom \
+            + s.code_doppler_chips * self._cspc_over_fs               # [C]
+        n_chips = k_ext * q_len
+        cc = torch.arange(-1, n_chips + 2, dtype=torch.float32, device=dev)
+        shifts = torch.as_tensor(self._shifts, dtype=torch.float32,
+                                 device=dev)
+        r0 = s.rem_code_phase_samples
+        a = torch.ceil(r0[:, None, None]
+                       + (cc[None, None, :] - shifts[None, :, None])
+                       / code_step[:, None, None])             # [C,T,Nb+1]
+        a = torch.clamp(a, 0, lg).to(torch.int64)
+        c, t = a.shape[0], a.shape[1]
+        pr = torch.gather(p_re[:, None, :].expand(c, t, lg + 1), -1, a)
+        pi_ = torch.gather(p_im[:, None, :].expand(c, t, lg + 1), -1, a)
+        seg_re = torch.diff(pr, dim=-1)                           # [C,T,Nb]
+        seg_im = torch.diff(pi_, dim=-1)
+        # the spill bins fold into the edge periods' wrap chips: chip -1
+        # onto table_len - 1, chip n_chips onto n_chips - table_len
+        core_re = seg_re[..., 1:1 + n_chips].clone()
+        core_im = seg_im[..., 1:1 + n_chips].clone()
+        core_re[..., q_len - 1] += seg_re[..., 0]
+        core_im[..., q_len - 1] += seg_im[..., 0]
+        core_re[..., n_chips - q_len] += seg_re[..., n_chips + 1]
+        core_im[..., n_chips - q_len] += seg_im[..., n_chips + 1]
+        core_re = core_re.reshape(c, t, k_ext, q_len)
+        core_im = core_im.reshape(c, t, k_ext, q_len)
+        code = tables[:, 0].to(dtype)
+        corr_re = torch.einsum("ctkq,cq->ckt", core_re, code)
+        corr_im = torch.einsum("ctkq,cq->ckt", core_im, code)
+        if not self.track_pilot:
+            return corr_re, corr_im, None, None
+        # the data prompt from the prompt tap's chip sums (same NCO, zero
+        # shift) against the data code
+        pt, dcode = self.n_taps // 2, tables[:, 1].to(dtype)
+        return (corr_re, corr_im,
+                torch.einsum("ckq,cq->ck", core_re[:, pt], dcode),
+                torch.einsum("ckq,cq->ck", core_im[:, pt], dcode))
 
     def _close_loops(self, s: FastState, process, t_frac, starts, rems,
                      corr_re, corr_im, step, data_re=None, data_im=None):
@@ -627,7 +735,7 @@ class FastTrackingEngine:
         """One float32 planar block (``block_samples + overlap``). Returns
         (state, {"packed": [G, C, 5K+4], "prompt_re": [G, C],
         "prompt_im": [G, C]}); ``code_tables`` [C, L] (and, pilot-tracked,
-        ``data_code_tables``) are banked here."""
+        ``data_code_tables``) go through :meth:`get_bank` here."""
         if block_re.shape[0] != self.block_samples + self.overlap:
             raise ValueError(
                 f"block must have {self.block_samples + self.overlap} "

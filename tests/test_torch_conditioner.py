@@ -1,5 +1,6 @@
-"""The port's signal conditioner, live and LabSat sources, and the K3 long
-window, held against the JAX package on the CPU.
+"""The port's signal conditioner, antenna-array beamformer, live and
+LabSat sources, and the K3 long window, held against the JAX package on
+the CPU.
 
 The same seeded numpy inputs go through each JAX function and its port
 counterpart. Tolerance: 2e-4 of the output rms (``tests/test_conditioner.
@@ -362,6 +363,55 @@ def test_k3_long_window_parity():
         assert np.max(np.abs(np.asarray(w) - g.numpy())) <= 1e-4 * scale
 
 
+# ---- beamformer.py (tests/test_conditioner.py::test_beamformer_gain_and_null)
+
+def _array_scene(m_ant, n, seed):
+    """A unit-power signal from 10 degrees and a 20 dB noise jammer from
+    55 degrees on a half-wavelength ULA of ``m_ant`` antennas."""
+    from gnss_sdr_tpu.conditioner.beamformer import array_response
+
+    rng = np.random.default_rng(seed)
+    sig = (rng.standard_normal(n) + 1j * rng.standard_normal(n)) / np.sqrt(2)
+    jam = 10 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    x = array_response(m_ant, 0.5, 10.0)[:, None] * sig[None, :] \
+        + array_response(m_ant, 0.5, 55.0)[:, None] * jam[None, :]
+    return sig, x
+
+
+def test_beamformer_parity_gain_and_null():
+    """The port's ``BeamformerFilter`` (K7e's plain version on the CPU)
+    against the JAX filter on the same array scene: the steering and
+    manifold vectors equal, the output within 1e-5 of its rms; on the
+    port's own output the JAX test's unity gain in the look direction,
+    the jammer held under 0.2 of one antenna's, a wrong channel count
+    refused; no launch counted."""
+    from gnss_sdr_tpu.conditioner import beamformer as jbf
+    from gnss_sdr_tpu_torch.conditioner import beamformer as tbf
+
+    for args in ((8, 0.5, 10.0), (4, 0.37, -33.0)):
+        np.testing.assert_array_equal(tbf.steering_weights(*args),
+                                      jbf.steering_weights(*args))
+        np.testing.assert_array_equal(tbf.array_response(*args),
+                                      jbf.array_response(*args))
+    m_ant, n = 8, 4096
+    sig, x = _array_scene(m_ant, n, 0)
+    bf = tbf.BeamformerFilter.steered(m_ant, 0.5, 10.0, device="cpu")
+    before = dict(LAUNCHES)
+    y = bf.apply(x)
+    assert dict(LAUNCHES) == before
+    assert set(bf.timings) == {"h2d_s", "device_s", "d2h_s"}
+    _close_rms(y, jbf.BeamformerFilter(jbf.steering_weights(
+        m_ant, 0.5, 10.0)).apply(x), 1e-5)
+    corr = np.vdot(sig, y) / np.vdot(sig, sig)
+    assert abs(abs(corr) - 1.0) < 0.05
+    jam_res = y - corr * sig
+    jam_single = x[0] - tbf.array_response(m_ant, 0.5, 10.0)[0] * sig
+    assert np.mean(np.abs(jam_res) ** 2) < 0.2 * np.mean(
+        np.abs(jam_single) ** 2)
+    with pytest.raises(ValueError, match="antenna channels"):
+        bf.apply(x[:5])
+
+
 # ---- the wrappers on the CPU -----------------------------------------------
 
 def test_cpu_wrappers_run_the_plain_versions():
@@ -382,6 +432,24 @@ def test_cpu_wrappers_run_the_plain_versions():
     for got, want in pairs:
         assert torch.equal(got, want)
     assert dict(LAUNCHES) == before
+
+
+def test_beamform_wrapper_runs_its_plain_version_on_the_cpu():
+    """K7e's wrapper on CPU tensors is ``beamform_plain`` (JAX's einsums),
+    counts no launch, and refuses a device it cannot run."""
+    rng = np.random.default_rng(5)
+    x_re, x_im = (_t(rng.standard_normal((6, 1000)).astype(np.float32))
+                  for _ in range(2))
+    w_re, w_im = (_t(rng.standard_normal(6).astype(np.float32))
+                  for _ in range(2))
+    before = dict(LAUNCHES)
+    got = k7.beamform(x_re, x_im, w_re, w_im)
+    want = k7.beamform_plain(x_re, x_im, w_re, w_im)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert dict(LAUNCHES) == before
+    meta = torch.empty((6, 1000), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        k7.beamform(meta, meta, w_re, w_im)
 
 
 # ---- sources/live.py (tests/test_live_sources.py) --------------------------

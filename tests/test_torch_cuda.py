@@ -25,9 +25,7 @@ def _ring(dev, n, seed=0):
                            .astype(np.int8), device=dev)
 
 
-@pytest.mark.parametrize("src_dtype", ["int8", "float32"])
-@pytest.mark.parametrize("n_taps", [1, 3, 5])
-def test_multicorr_kernel_matches_plain(dev, n_taps, src_dtype):
+def _multicorr_case(dev, n_taps, src_dtype):
     from gnss_sdr_tpu_torch.kernels import multicorr as k3
     from gnss_sdr_tpu_torch.ops.correlator import n_extra_bins
 
@@ -60,6 +58,16 @@ def test_multicorr_kernel_matches_plain(dev, n_taps, src_dtype):
             torch.max(torch.abs(want[0]))))
 
 
+def test_multicorr_kernel_matches_plain(dev):
+    """K3 against its plain version for 1, 3 and 5 taps on the int8 ring
+    and on float32 planes
+    (the cases run in one test: the tier-1 run's count of collected
+    tests sets xdist's schedule of the memory-heavy JAX tests)."""
+    for n_taps in (1, 3, 5):
+        for src_dtype in ("int8", "float32"):
+            _multicorr_case(dev, n_taps, src_dtype)
+
+
 @pytest.mark.parametrize("src_dtype", ["int8", "float32"])
 def test_bank_corr_kernel_matches_plain(dev, src_dtype):
     from gnss_sdr_tpu_torch.kernels import bank_corr as k1
@@ -85,8 +93,7 @@ def test_bank_corr_kernel_matches_plain(dev, src_dtype):
             torch.max(torch.abs(want[0]))))
 
 
-@pytest.mark.parametrize("use_cfar", [True, False])
-def test_acq_kernels_match_plain(dev, use_cfar):
+def _acq_case(dev, use_cfar):
     from gnss_sdr_tpu_torch.kernels import acq
 
     rng = np.random.default_rng(5)
@@ -113,6 +120,15 @@ def test_acq_kernels_match_plain(dev, use_cfar):
     sp = acq.acq_stats_plain(grid_p, rmp, rap, 2, 2, use_cfar)
     assert torch.equal(sk[1], sp[1]) and torch.equal(sk[2], sp[2])
     torch.testing.assert_close(sk[0], sp[0], rtol=1e-4, atol=0)
+
+
+def test_acq_kernels_match_plain(dev):
+    """K2's four kernels against their plain versions, with the CFAR
+    statistic and with the second-peak ratio
+    (the cases run in one test: the tier-1 run's count of collected
+    tests sets xdist's schedule of the memory-heavy JAX tests)."""
+    for use_cfar in (True, False):
+        _acq_case(dev, use_cfar)
 
 
 def test_kernel_wrappers_count_launches(dev):
@@ -165,10 +181,7 @@ def _rms_close(got, want, tol):
     assert float(torch.max(torch.abs(got - want))) <= tol * rms
 
 
-@pytest.mark.parametrize("nco_step", [0.0, -1.1780972450961724])
-@pytest.mark.parametrize("decimation,n_taps", [(1, 33), (2, 65), (4, 65),
-                                               (3, 1001)])
-def test_fir_decim_kernel_matches_plain(dev, decimation, n_taps, nco_step):
+def _fir_decim_case(dev, decimation, n_taps, nco_step):
     from gnss_sdr_tpu_torch.kernels import conditioner as k7
 
     x = _cx(dev, 50_001, n_taps)
@@ -179,6 +192,16 @@ def test_fir_decim_kernel_matches_plain(dev, decimation, n_taps, nco_step):
     got, want = k7.fir_decim(*args), k7.fir_decim_plain(*args)
     assert got.shape == want.shape
     _rms_close(got, want, 1e-5)
+
+
+def test_fir_decim_kernel_matches_plain(dev):
+    """K7a against its plain version at decimations 1-4 and 33-1001 taps,
+    with and without the translation NCO
+    (the cases run in one test: the tier-1 run's count of collected
+    tests sets xdist's schedule of the memory-heavy JAX tests)."""
+    for decimation, n_taps in ((1, 33), (2, 65), (4, 65), (3, 1001)):
+        for nco_step in (0.0, -1.1780972450961724):
+            _fir_decim_case(dev, decimation, n_taps, nco_step)
 
 
 @pytest.mark.parametrize("n", [100_000, 99_999])
@@ -192,8 +215,7 @@ def test_pulse_blank_and_notch_kernels_match_plain(dev, n):
                        k7.notch_mask_plain(spec, 8.0))
 
 
-@pytest.mark.parametrize("fs_out", [4e6, 6.4e6, 3.3e6])
-def test_resample_kernel_matches_plain(dev, fs_out):
+def _resample_case(dev, fs_out):
     from gnss_sdr_tpu_torch.kernels import conditioner as k7
 
     x = _cx(dev, 80_001, 6)
@@ -201,6 +223,15 @@ def test_resample_kernel_matches_plain(dev, fs_out):
         got = k7.resample(x, 8e6, fs_out, mode)
         want = k7.resample_plain(x, 8e6, fs_out, mode)
         assert torch.equal(got, want), mode
+
+
+def test_resample_kernel_matches_plain(dev):
+    """K7d (both resamplers) against its plain version from 8 Msps to 4,
+    6.4 and 3.3 Msps
+    (the cases run in one test: the tier-1 run's count of collected
+    tests sets xdist's schedule of the memory-heavy JAX tests)."""
+    for fs_out in (4e6, 6.4e6, 3.3e6):
+        _resample_case(dev, fs_out)
 
 
 def test_conditioner_wrappers_count_launches(dev):
@@ -594,10 +625,10 @@ def test_scan_loop_matches_stepwise(dev, case):
     _records_close(pa[:2], o2["packed"], 0, 1, 3, 8, 11, (4, 5))
 
 
-def _fast_case(dev, case):
+def _fast_case(dev, case, correlator="bank"):
     """(fast engine, ring, code tables, data code tables, start state,
     base) of one K1-loop case, pulled in on a scan engine through the
-    plain path."""
+    plain path; ``correlator`` selects the bank or the segmented sum."""
     from gnss_sdr_tpu_torch.codes.galileo_e1 import E1C_SECONDARY
     from gnss_sdr_tpu_torch.tracking.fast_engine import FastTrackingEngine
 
@@ -610,7 +641,8 @@ def _fast_case(dev, case):
         pll_bw_narrow_hz=2.0 if pilot else 5.0)
     loop = case if case in ("kf", "gaussian") else "fllpll"
     fast = FastTrackingEngine(cfg, 8, {"e1-pilot": 1, "e1-k1": 25}.get(
-        case, 5), loop=loop, sec_max_len=25 if pilot else 1, device=dev)
+        case, 5), correlator=correlator, loop=loop,
+        sec_max_len=25 if pilot else 1, device=dev)
     fs = fast.from_track_state(s)
     base = 8 * 80000
     if pilot:
@@ -665,3 +697,168 @@ def test_fast_loop_matches_stepwise(dev, case):
         mag = torch.hypot(o1["prompt_re"], o1["prompt_im"])
         ref = torch.hypot(ra[0], ia[0])
         assert float(((mag - ref).abs() / ref).max()) < 0.02
+
+
+@pytest.mark.parametrize("case", ["fllpll", "e1-pilot"])
+def test_fast_loop_segsum_matches_stepwise(dev, case, monkeypatch):
+    """K1-loop with the segmented-sum body (K1-seg) over one superblock
+    from a pulled-in state against the per-group path on the card: the
+    plain version differences float32 prefix sums where the kernel sums
+    each chip's samples, so the first group's period correlations agree
+    within 1e-4 of the group's prompt magnitude (not to the bit), every
+    record, the group prompts and the end state within the JAX suite's
+    tolerances; one fast_loop_seg launch per call, no other launch and no
+    call of the per-group path; L1 (K = 20) and the E1 pilot with the
+    data prompt and CS25 (K = 25)."""
+    from gnss_sdr_tpu_torch.kernels import LAUNCHES, reset_launches
+    from gnss_sdr_tpu_torch.tracking.fast_engine import FastTrackingEngine
+
+    fast, ring, codes, dcodes, s, base = _fast_case(dev, case, "segsum")
+    tables = fast.get_bank(codes, dcodes)
+    assert tuple(tables.shape) == (8, 1 + fast.track_pilot, fast.table_len)
+    nb = 2 if case == "e1-pilot" else 4
+    sa, pa, ra, ia = fast._blocks_stepwise(s, ring[0], ring[1], base,
+                                           fast.block_samples, nb, tables)
+
+    def refuse(*a, **k):
+        raise AssertionError("the per-group path ran on the card")
+    monkeypatch.setattr(FastTrackingEngine, "_blocks_stepwise", refuse)
+    reset_launches()
+    sb, out = fast.superblock_ring_i8(s, ring, base, nb, tables)
+    assert {k: v for k, v in LAUNCHES.items() if v} == {"fast_loop_seg": 1}
+    pb, k = out["packed"], fast.k
+    assert pb.shape == (nb, fast.g, 8, 5 * k + 4)
+    group = torch.hypot(ra[0, 0], ia[0, 0])
+    err = (pa[0, 0, :, 2 * k:5 * k] - pb[0, 0, :, 2 * k:5 * k]).abs() \
+        .amax(dim=1)
+    assert bool((err <= 1e-4 * group).all()), (err / group)
+    for j in range(k):
+        _records_close(pa, pb, 5 * k + 2, j, k + j, 5 * k, 5 * k + 1,
+                       (3 * k + j, 4 * k + j))
+    assert torch.equal(pa[..., 5 * k + 3], pb[..., 5 * k + 3])
+    assert torch.equal(sa.loss_of_lock, sb.loss_of_lock)
+    assert float((sa.carrier_doppler_hz - sb.carrier_doppler_hz).abs()
+                 .max()) < 1.0
+    bnd = (sa.offset.double() + sa.rem_code_phase_samples.double()) \
+        - (sb.offset.double() + sb.rem_code_phase_samples.double())
+    assert float(bnd.abs().max()) < 0.02
+    if case == "fllpll":
+        width = fast.block_samples + fast.overlap
+        blk = ring[:, base:base + width].float()
+        reset_launches()
+        s1, o1 = fast.process_block(s, blk[0].contiguous(),
+                                    blk[1].contiguous(), codes)
+        assert LAUNCHES["fast_loop_seg"] == 1
+        assert torch.equal(o1["packed"], pb[0])
+        mag = torch.hypot(o1["prompt_re"], o1["prompt_im"])
+        ref = torch.hypot(ra[0], ia[0])
+        assert float(((mag - ref).abs() / ref).max()) < 0.02
+
+
+def _hd_windows(dev, seed, length, table_len, accel_x10g, c=4):
+    """K3-hd arguments at a tracking width (4 Msps): ``c`` float32 windows
+    of one C/A-like table (1023 entries, 3 taps) or E1-like sub-chip
+    table (49104 entries, 5 taps) read at the quadratic code phase of
+    ``accel_x10g`` x 10 g under its quadratic carrier, plus noise; and
+    the code and carrier rates."""
+    fs = 4e6
+    cspc = 1 if table_len == 1023 else 12
+    rng = np.random.default_rng(seed)
+    f_dot = 98.0665 / (299792458.0 / 1575.42e6) * accel_x10g
+    code = np.sign(rng.standard_normal((c, table_len))).astype(np.float32)
+    step = (np.full(c, 1.023e6 * cspc / fs)
+            * (1.0 + rng.uniform(-3e-6, 3e-6, c))).astype(np.float32)
+    code_rate = np.full(c, f_dot * 1.023e6 / 1575.42e6 * cspc / fs ** 2,
+                        np.float32)
+    carr_rate = np.full(c, 2.0 * np.pi * f_dot / fs ** 2, np.float32)
+    rem = rng.uniform(0, 3, c).astype(np.float32)
+    rem_carr = rng.uniform(0, 6.28, c).astype(np.float32)
+    carr_step = rng.uniform(-0.01, 0.01, c).astype(np.float32)
+    n = np.arange(length, dtype=np.float64)
+    x = np.zeros((c, length), np.complex64)
+    for i in range(c):
+        chip = np.floor(step[i] * n - rem[i] + 0.5 * code_rate[i] * n * n)
+        ph = rem_carr[i] + carr_step[i] * n + 0.5 * carr_rate[i] * n * n
+        x[i] = code[i, chip.astype(np.int64) % table_len] * np.exp(1j * ph) \
+            + rng.standard_normal(length) + 1j * rng.standard_normal(length)
+    spc = 0.15 * cspc if cspc == 12 else 0.5 * cspc
+    shifts = [-0.6 * cspc, -spc, 0.0, spc, 0.6 * cspc] if cspc == 12 \
+        else [-spc, 0.0, spc]
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+    planes = (t(x.real.astype(np.float32).ravel()),
+              t(x.imag.astype(np.float32).ravel()))
+    args = planes + (
+        0, t((np.arange(c) * length).astype(np.int32)),
+        t(rng.integers(length - 16, length + 1, c).astype(np.int32)),
+        t(code), t(np.asarray(shifts, np.float32)), t(rem), t(step),
+        t(rem_carr), t(carr_step), length, 2)
+    return args, t(carr_rate), t(code_rate)
+
+
+def test_multicorr_hd_kernel_matches_plain(dev):
+    """K3-hd against ``multicorrelate_hd`` on the same windows at the L1
+    (4016 samples, 3 taps) and E1 (16016, 5 taps, 49104 entries) widths,
+    10 g and 1000 g: the same float32 code index and carrier phase
+    (formed alike), the sums in another order: within 1e-5 of the prompt
+    magnitude; one multicorr_hd launch; without a carrier rate the linear
+    carrier; a carrier rate alone refused on the card
+    (the cases run in one test: the tier-1 run's count of collected
+    tests sets xdist's schedule of the memory-heavy JAX tests)."""
+    for length, table_len in ((4016, 1023), (16016, 49104)):
+        for accel_x10g in (1.0, 100.0):
+            _hd_case(dev, length, table_len, accel_x10g)
+
+
+def _hd_case(dev, length, table_len, accel_x10g):
+    from gnss_sdr_tpu_torch.kernels import LAUNCHES, reset_launches
+    from gnss_sdr_tpu_torch.kernels import multicorr as k3
+
+    args, carr_rate, code_rate = _hd_windows(dev, 8, length, table_len,
+                                             accel_x10g)
+    for rates in ((carr_rate, code_rate), (None, code_rate)):
+        reset_launches()
+        got = k3.multicorr(*args, *rates)
+        assert {k: v for k, v in LAUNCHES.items() if v} == \
+            {"multicorr_hd": 1}
+        want = k3.multicorr_plain(*args, *rates)
+        mid = want[0].shape[1] // 2
+        prompt = torch.hypot(want[0][:, mid], want[1][:, mid])
+        for g, w in zip(got, want):
+            err = (g - w).abs().amax(dim=1)
+            assert bool((err <= 1e-5 * prompt).all()), (err / prompt)
+    with pytest.raises(ValueError, match="code rate"):
+        k3.multicorr(*args, carr_rate, None)
+
+
+def test_beamform_kernel_matches_plain(dev):
+    """K7e against JAX's einsums on the card (M = 8, N = 100 000): within
+    1e-5 of the output rms; one launch per filter call; the filter's gain
+    in its look direction and its null on the jammer."""
+    from gnss_sdr_tpu_torch.conditioner.beamformer import (BeamformerFilter,
+                                                           array_response)
+    from gnss_sdr_tpu_torch.kernels import LAUNCHES, reset_launches
+    from gnss_sdr_tpu_torch.kernels import conditioner as k7
+
+    rng = np.random.default_rng(12)
+    m, n = 8, 100_000
+    sig = (rng.standard_normal(n) + 1j * rng.standard_normal(n)) / np.sqrt(2)
+    jam = 10 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    x = array_response(m, 0.5, 10.0)[:, None] * sig \
+        + array_response(m, 0.5, 55.0)[:, None] * jam
+    bf = BeamformerFilter.steered(m, 0.5, 10.0, device=dev)
+    x_re = torch.as_tensor(x.real.astype(np.float32), device=dev)
+    x_im = torch.as_tensor(x.imag.astype(np.float32), device=dev)
+    got = k7.beamform(x_re, x_im, bf._w_re, bf._w_im)
+    want = k7.beamform_plain(x_re, x_im, bf._w_re, bf._w_im)
+    _rms_close(torch.complex(*got), torch.complex(*want), 1e-5)
+    reset_launches()
+    y = bf.apply(x)
+    assert {k: v for k, v in LAUNCHES.items() if v} == {"beamform": 1}
+    corr = np.vdot(sig, y) / np.vdot(sig, sig)
+    assert abs(abs(corr) - 1.0) < 0.05
+    jam_single = x[0] - array_response(m, 0.5, 10.0)[0] * sig
+    assert np.mean(np.abs(y - corr * sig) ** 2) < 0.2 * np.mean(
+        np.abs(jam_single) ** 2)

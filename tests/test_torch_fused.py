@@ -22,6 +22,13 @@
   launch and without writing the caller's state, refuse other devices,
   and every entry point (``process_block``, ``superblock_step``,
   ``superblock_ring_i8``) gives the same records and state to the bit.
+- The segmented-sum fast engine (``correlator="segsum"``, K1-loop's
+  K1-seg body on the card) against the JAX segsum engine: a 2-block L1
+  superblock and one E1 pilot group (K = 25, CS25, the data prompt)
+  within the same tolerances, each first-group period correlation
+  within 1e-5 of the group's prompt magnitude (XLA's float32 prefix sums
+  against PyTorch's, which the CPU accumulates in float64); its launch
+  constants, state layout and raw code tables.
 
 The kernels themselves run only on the card (``tests/test_torch_cuda.py``
 holds them against ``_blocks_stepwise`` there).
@@ -322,20 +329,39 @@ FAST_CASES = {"fllpll": (KW, "fllpll"),
               "kf": (KW, "kf"), "gaussian": (KW, "gaussian")}
 
 
+FAST_CASES.update({
+    "segsum": (KW, "fllpll"),
+    "e1-pilot-segsum": (dict(E1_KW, extend_correlation_symbols=25,
+                             track_pilot=True), "fllpll")})
+
+
 @pytest.mark.parametrize("case", list(FAST_CASES))
 def test_fast_consts_match_jax_engine(case):
     """Every coefficient K1-loop receives (the FLL/PLL products, the DLL
-    filter, the KF / Gaussian matrices) equals, in float32, the JAX fast
-    engine's own for the same configuration."""
+    filter, the KF / Gaussian matrices; for the segmented sum its window,
+    code rate and tap shifts) equals, in float32, the JAX fast engine's
+    own for the same configuration."""
     from gnss_sdr_tpu.ops import gaussian as jgauss
     from gnss_sdr_tpu.ops import kalman as jkalman
 
     kw, loop = FAST_CASES[case]
+    corr = "segsum" if case.endswith("segsum") else "bank"
     eng = FastTrackingEngine(TrackingConfig(**kw), 2, 2, loop=loop,
-                             device="cpu")
-    jf = JFast(JConfig(**kw), 2, 2, loop=loop)
+                             correlator=corr, device="cpu")
+    jf = JFast(JConfig(**kw), 2, 2, loop=loop, correlator=corr)
     cfg = jf.cfg
     k = kfl.fast_consts(eng)
+    assert k.seg == (corr == "segsum")
+    if corr == "segsum":
+        # JAX's Lg, code_table_len, code_step_nom and cspc / fs (_build)
+        assert (k.lg, k.table_len) == (
+            jf.k * cfg.samples_per_code + 64,
+            cfg.code_length_chips * cfg.code_samples_per_chip)
+        assert k.code_step_nom == ksl.f32(
+            cfg.chip_rate_cps / cfg.fs * cfg.code_samples_per_chip)
+        assert k.cspc_over_fs == float(np.float32(cfg.code_samples_per_chip)
+                                       / np.float32(cfg.fs))
+        assert list(k.shifts)[:eng.n_taps] == _f32s(jf._shifts)
     assert (k.n_groups, k.K, k.block_samples, k.total, k.win_len, k.P1,
             k.sec_max_len, k.cn0_samples, k.pll_order) == (
         jf.g, jf.k, jf.block_samples, jf.block_samples + jf.overlap,
@@ -533,3 +559,183 @@ def test_entry_points_refuse_blocks_of_the_wrong_size(call, ring, pulled):
             eng.superblock_step(s, short[None], short[None], codes)
         else:
             eng.superblock_ring_i8(s, r, r.shape[1] - BLOCK, 1, tables)
+
+
+# -- the segmented-sum fast engine (K1-seg) -------------------------------------
+
+SEG_CASES = {"l1": (KW, 1),
+             "e1-pilot": (dict(E1_KW, extend_correlation_symbols=25,
+                               track_pilot=True), 25)}
+
+
+@pytest.mark.parametrize("case", list(SEG_CASES))
+def test_segsum_engine_state_struct_and_tables(case):
+    """A segsum engine hands K1-loop the same state as the bank engine
+    (``state_spec`` names every field of its fresh and handed-over
+    states; the pointer structure points at each) and, from ``get_bank``,
+    the raw code tables [C, 1 (+ the data code), table_len] (JAX passes
+    them unbanked), which the wrapper's check accepts; a bank is
+    refused."""
+    kw, sec = SEG_CASES[case]
+    cfg = TrackingConfig(**kw)
+    fast = FastTrackingEngine(cfg, 3, 2, correlator="segsum",
+                              sec_max_len=sec, device="cpu")
+    scan = TrackingEngine(cfg, 3, 80000, device="cpu")
+    spec = kfl.state_spec(fast)
+    rng = np.random.default_rng(3)
+    for state in (fast.init_state(), fast.from_track_state(
+            scan.init_state())):
+        for name, t in zip(type(state)._fields, state):
+            dtype, trailing = spec[name]
+            assert (t.dtype, tuple(t.shape)) == (dtype, (3, *trailing)), name
+        filled = _random_state(state, rng)
+        struct, _ = kb.state_pointers(filled, spec, 3, CPU, "fast")
+        for name, t in zip(type(filled)._fields, filled):
+            raw = (ctypes.c_ubyte * (t.numel() * t.element_size())
+                   ).from_address(getattr(struct, name))
+            np.testing.assert_array_equal(np.frombuffer(
+                bytes(raw), dtype=t.numpy().dtype).reshape(t.shape),
+                t.numpy(), err_msg=name)
+    q = fast.table_len
+    codes = torch.from_numpy(rng.standard_normal((3, q)).astype(np.float32))
+    data = torch.from_numpy(rng.standard_normal((3, q)).astype(np.float32))
+    tables = fast.get_bank(codes, data if fast.track_pilot else None)
+    want = [codes] + ([data] if fast.track_pilot else [])
+    assert torch.equal(tables, torch.stack(want, 1))
+    kfl.check_tables(fast, tables, CPU)
+    bank = torch.zeros((3, fast.BANK_PHASES + 1, fast.n_taps, fast.win_len))
+    with pytest.raises(ValueError, match="code tables"):
+        kfl.check_tables(fast, bank, CPU)
+    assert fast.overlap == fast.k * cfg.samples_per_code + fast.max_period
+
+
+def _seg_records_match(pj, pt, k, first_scale):
+    """The JAX suite's tolerances between two packed records, and each
+    first-group period correlation within 1e-5 of ``first_scale`` [C],
+    the group's prompt magnitude."""
+    np.testing.assert_array_equal(pj[..., 5 * k + 2:], pt[..., 5 * k + 2:])
+    assert np.max(np.abs(_boundaries(pj[..., :k], pj[..., k:2 * k])
+                         - _boundaries(pt[..., :k], pt[..., k:2 * k]))) < 0.02
+    np.testing.assert_allclose(np.abs(pt[..., 2 * k:3 * k]),
+                               np.abs(pj[..., 2 * k:3 * k]), rtol=0.02,
+                               atol=1e-3 * np.abs(pj[..., 2 * k:3 * k]).max())
+    assert np.max(np.abs(pj[..., 5 * k] - pt[..., 5 * k])) < 1.0
+    assert np.max(np.abs(pj[..., 5 * k + 1] - pt[..., 5 * k + 1])) < 1.0
+    err = np.max(np.abs(pj[0, 0, :, 2 * k:5 * k] - pt[0, 0, :, 2 * k:5 * k]),
+                 axis=1)
+    assert np.all(err <= 1e-5 * first_scale), (err, first_scale)
+
+
+def _group_prompt(p, k):
+    """|sum of the first group's period prompts| [C] from a record whose
+    columns 2K.. hold the prompt's re and 4K.. its im (a record without a
+    data prompt)."""
+    return np.abs(np.sum(p[0, 0][:, 2 * k:3 * k]
+                         + 1j * p[0, 0][:, 4 * k:5 * k], axis=1))
+
+
+def _e1_pilot_ring(n, chans, seed):
+    """int8 planar ring at 4 Msps: per channel (PRN, delay, Doppler) one
+    Galileo E1 signal (E1-B with a random symbol a period minus the
+    CS25-signed E1-C, over sqrt 2) plus noise."""
+    from gnss_sdr_tpu.codes.galileo_e1 import (E1C_SECONDARY,
+                                               galileo_e1_subchips)
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(n, dtype=np.float64)
+    x = (rng.standard_normal(n) + 1j * rng.standard_normal(n)) * 8.0
+    cs = np.array([1.0 if c == "0" else -1.0 for c in E1C_SECONDARY])
+    for prn, delay, dopp in chans:
+        sub = np.floor((t - delay) * 1.023e6 * 12 / 4e6).astype(np.int64)
+        per = sub // 49104
+        sym = np.sign(rng.standard_normal(per.max() - per.min() + 1))
+        e = (galileo_e1_subchips(prn, "B", True)[sub % 49104]
+             * sym[per - per.min()]
+             - galileo_e1_subchips(prn, "C", True)[sub % 49104]
+             * cs[per % 25]) / np.sqrt(2.0)
+        x = x + 3.0 * e * np.exp(2j * np.pi * dopp * t / 4e6)
+    return np.stack([np.clip(x.real, -127, 127).astype(np.int8),
+                     np.clip(x.imag, -127, 127).astype(np.int8)])
+
+
+def test_fast_segsum_superblock_matches_jax(ring, monkeypatch):
+    """A 2-block L1 superblock of the segsum engine from a pulled-in
+    state: one ``_blocks_stepwise`` call on the CPU, and the JAX segsum
+    engine's records and end state within the JAX suite's tolerances."""
+    eng, s, codes = _pulled_in(ring)
+    fast = FastTrackingEngine(TrackingConfig(**KW), 2, 2,
+                              correlator="segsum", device="cpu")
+    fs = fast.from_track_state(s)
+    calls = _spy(monkeypatch, FastTrackingEngine)
+    base = 8 * BLOCK
+    ts, out = fast.superblock_ring_i8(fs, torch.from_numpy(ring), base, 2,
+                                      fast.get_bank(codes))
+    assert calls == [2]
+    jf = JFast(JConfig(**KW), 2, 2, correlator="segsum")
+    js = JFastState(**{k: jnp.asarray(v)
+                       for k, v in convert.state_numpy(fs).items()})
+    js, jout = jf._superblock_ring_i8(js, jnp.asarray(ring), jnp.int32(base),
+                                      2, jnp.asarray(codes.numpy()))
+    pj, pt = np.asarray(jout["packed"]), out["packed"].numpy()
+    k = fast.k
+    assert pj.shape == pt.shape == (2, 2, 2, 5 * k + 4)
+    assert (pt[..., 5 * k + 2] > 0.5).all()
+    _seg_records_match(pj, pt, k, _group_prompt(pj, k))
+    jd = convert.field_dict(js)
+    np.testing.assert_array_equal(jd["offset"], ts.offset.numpy())
+    assert np.max(np.abs(jd["carrier_doppler_hz"]
+                         - ts.carrier_doppler_hz.numpy())) < 1.0
+
+
+def test_fast_segsum_e1_pilot_group_matches_jax():
+    """One E1 pilot group (K = 25 on the E1-C code with CS25 wiped off,
+    VEML, the E1-B data prompt from the prompt tap's chip sums) of the
+    segsum engine against the JAX segsum engine from the same state:
+    every period's pilot and data prompts within 1e-5 of the group's
+    prompt magnitude, the record and end state within the suite's
+    tolerances."""
+    from gnss_sdr_tpu.codes.galileo_e1 import (E1C_SECONDARY,
+                                               galileo_e1_subchips)
+
+    kw = dict(E1_KW, extend_correlation_symbols=25, track_pilot=True)
+    # one channel: the plain version's [C, T, 25 x 49104 + 3] boundary
+    # arrays (and JAX's) hold ~0.2 GB a channel
+    chans = [(12, 11002.7, -2320.0)]
+    fast = FastTrackingEngine(TrackingConfig(**kw), 1, 1,
+                              correlator="segsum", sec_max_len=25,
+                              device="cpu")
+    ring = _e1_pilot_ring(fast.block_samples + fast.overlap + 16000, chans,
+                          41)
+    s = fast.init_state()
+    for ch, (_, delay, dopp) in enumerate(chans):
+        s = fast.start_channel(s, ch, dopp, int(np.ceil(delay)))
+        s = fast.set_secondary(s, ch, E1C_SECONDARY, 0)
+    s = s._replace(rem_code_phase_samples=torch.tensor(
+        [np.ceil(d) - d for _, d, _ in chans], dtype=torch.float32))
+
+    def tables(comp):
+        return np.stack([galileo_e1_subchips(p, comp, True)
+                         for p, _, _ in chans]).astype(np.float32)
+
+    codes, dcodes = tables("C"), tables("B")
+    src = torch.from_numpy(ring)
+    ts, packed, pre, pim = kfl.fast_loop(
+        fast, s, src[0], src[1], 0, fast.block_samples, 1,
+        fast.get_bank(torch.from_numpy(codes), torch.from_numpy(dcodes)))
+    jf = JFast(JConfig(**kw), 1, 1, correlator="segsum", sec_max_len=25)
+    js = JFastState(**{k: jnp.asarray(v)
+                       for k, v in convert.state_numpy(s).items()})
+    js, jout = jf._superblock_ring_i8(js, jnp.asarray(ring), jnp.int32(0), 1,
+                                      jnp.asarray(codes), jnp.asarray(dcodes))
+    pj, pt = np.asarray(jout["packed"]), packed.numpy()
+    k = fast.k
+    assert pj.shape == pt.shape == (1, 1, 1, 5 * k + 4)
+    assert (pt[..., 5 * k + 2] > 0.5).all()
+    group = np.hypot(pre.numpy()[0, 0], pim.numpy()[0, 0])
+    assert np.all(group > 0)
+    _seg_records_match(pj, pt, k, group)
+    jd = convert.field_dict(js)
+    np.testing.assert_array_equal(jd["offset"], ts.offset.numpy())
+    np.testing.assert_array_equal(jd["sec_phase"], ts.sec_phase.numpy())
+    assert np.max(np.abs(jd["carrier_doppler_hz"]
+                         - ts.carrier_doppler_hz.numpy())) < 1.0

@@ -179,6 +179,106 @@ def test_multicorrelate_high_dynamics_parity():
         assert np.max(np.abs(np.asarray(w) - g.numpy())) <= 1e-4 * scale
 
 
+#: 10 g along the line of sight at L1: the carrier's Doppler rate
+#: [Hz / s] and the code's [chips / s^2]
+HD_DOPPLER_RATE = 98.0665 / (299792458.0 / 1575.42e6)
+HD_CODE_RATE = HD_DOPPLER_RATE * 1.023e6 / 1575.42e6
+
+
+def hd_inputs(seed, length, n_taps, table_len, accel_x10g=1.0, c=4):
+    """Seeded K3-hd inputs at a tracking width (4 Msps): ``c`` windows of
+    ``length`` samples, each a +-1 table (``table_len`` entries, 1023 or
+    12 x 4092 for E1's sub-chips) read at the quadratic code phase under
+    a carrier with the quadratic phase of ``accel_x10g`` x 10 g, plus
+    noise; the rates in code-table units and radians per sample
+    squared."""
+    fs, cspc = 4e6, table_len // (1023 if table_len % 1023 == 0 else 4092)
+    rng = np.random.default_rng(seed)
+    code = np.sign(rng.standard_normal((c, table_len))).astype(np.float32)
+    step = (np.full(c, 1.023e6 * cspc / fs)
+            * (1.0 + rng.uniform(-3e-6, 3e-6, c))).astype(np.float32)
+    code_rate = np.full(c, HD_CODE_RATE * accel_x10g * cspc / fs ** 2,
+                        np.float32)
+    carr_rate = np.full(c, 2.0 * np.pi * HD_DOPPLER_RATE * accel_x10g
+                        / fs ** 2, np.float32)
+    rem = rng.uniform(0.0, 3.0, c).astype(np.float32)
+    rem_carr = rng.uniform(0, 6.28, c).astype(np.float32)
+    carr_step = rng.uniform(-0.01, 0.01, c).astype(np.float32)
+    n = np.arange(length, dtype=np.float64)
+    x = np.zeros((c, length), np.complex64)
+    for i in range(c):
+        chip = np.floor(step[i] * n - rem[i] + 0.5 * code_rate[i] * n * n)
+        ph = rem_carr[i] + carr_step[i] * n + 0.5 * carr_rate[i] * n * n
+        x[i] = code[i, chip.astype(np.int64) % table_len] * np.exp(1j * ph) \
+            + (rng.standard_normal(length)
+               + 1j * rng.standard_normal(length))
+    spc = 0.15 * cspc if n_taps == 5 else 0.5 * cspc
+    shifts = [-0.6 * cspc, -spc, 0.0, spc, 0.6 * cspc] if n_taps == 5 \
+        else [-spc, 0.0, spc]
+    return dict(
+        x_re=np.ascontiguousarray(x.real, np.float32),
+        x_im=np.ascontiguousarray(x.imag, np.float32), code=code,
+        shifts=np.asarray(shifts, np.float32), rem=rem, step=step,
+        rem_carr=rem_carr, carr_step=carr_step,
+        length=rng.integers(length - 16, length + 1, c).astype(np.int32),
+        carr_rate=carr_rate, code_rate=code_rate)
+
+
+@pytest.mark.parametrize("length,n_taps,table_len",
+                         [(4016, 3, 1023), (16016, 5, 49104)],
+                         ids=["l1", "e1"])
+def test_multicorrelate_high_dynamics_parity_at_tracking_widths(
+        length, n_taps, table_len):
+    """K3-hd's plain version (``multicorrelate`` with both rates: the
+    per-sample gather at the quadratic code phase, the quadratic carrier)
+    against JAX's on seeded windows at the L1 and E1 scan widths, 10 g
+    and 1000 g: every tap within 1e-5 of the prompt magnitude (the float32
+    n * n past n = 4096 is formed alike; the sums differ in order)."""
+    for accel in (1.0, 100.0):
+        q = hd_inputs(int(accel) + length, length, n_taps, table_len, accel)
+        a = [q[k] for k in ORDER]
+        sh = q["shifts"]
+        rates = (q["carr_rate"], q["code_rate"])
+        want = jax.jit(lambda *v: jmulticorrelate(
+            v[0], v[1], v[2], sh, *v[3:]))(
+            *[jnp.asarray(v) for k, v in zip(ORDER, a) if k != "shifts"],
+            *map(jnp.asarray, rates))
+        got = multicorrelate(*[torch.from_numpy(v) for v in a],
+                             *map(torch.from_numpy, rates))
+        mid = n_taps // 2
+        prompt = np.hypot(np.asarray(want[0])[:, mid],
+                          np.asarray(want[1])[:, mid])
+        # the signal is there: the prompt holds most of its coherent sum
+        assert np.all(prompt > 0.8 * q["length"])
+        for w, g in zip(want, got):
+            err = np.max(np.abs(np.asarray(w) - g.numpy()), axis=1)
+            assert np.all(err <= 1e-5 * prompt), (err / prompt, accel)
+
+
+def test_multicorr_wrapper_high_dynamics_on_cpu():
+    """With the rates, the K3 wrapper on CPU tensors is K3-hd's plain
+    version (``multicorrelate``'s high-dynamics branch) on the windows it
+    slices from the int8 ring; a carrier rate alone keeps the
+    segmented sum with a quadratic carrier."""
+    rng = np.random.default_rng(4)
+    ring = torch.from_numpy(rng.integers(-60, 60, size=(2, 30000))
+                            .astype(np.int8))
+    q = {k: torch.from_numpy(v) for k, v in hd_inputs(6, 2516, 3, 1023,
+                                                       100.0).items()}
+    start = torch.tensor([10, 2000, 7000, 12000], dtype=torch.int32)
+    idx = 5000 + start[:, None].long() + torch.arange(2516)
+    x_re, x_im = ring[0][idx].float(), ring[1][idx].float()
+    for rates in ((q["carr_rate"], q["code_rate"]), (None, q["code_rate"]),
+                  (q["carr_rate"], None)):
+        got = multicorr(ring[0], ring[1], 5000, start, q["length"],
+                        q["code"], q["shifts"], q["rem"], q["step"],
+                        q["rem_carr"], q["carr_step"], 2516, 2, *rates)
+        want = multicorrelate(x_re, x_im, *[q[k] for k in ORDER[2:]],
+                              *rates, n_extra=2)
+        for w, g in zip(want, got):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
 def test_multicorr_wrapper_reads_ring_windows_on_cpu():
     """The K3 wrapper on CPU tensors is the segmented-sum oracle applied
     to the windows it slices from the int8 ring."""

@@ -94,11 +94,22 @@ and cache the scenes the slices then load):
    capture of 1 s at 4 Msps with a 20 dB jammer, the JAX test's gain and
    null bounds, then the kernel against its plain version and
    ``torch.matmul`` (``beamformer_phase``).
-12. Prints one ``{"kernels": [...]}`` line, one ``{"slice": ...}`` line,
+12. Sharded path (``parallel_phase``, after step 10): on a logical mesh
+   of four shards on the card, the L1 slice's and the E1 band's phase-B
+   fast superblocks and the slice's last phase-A scan superblock with
+   their channels split over the shards (``parallel/engines.py``), the
+   PCPS grids at the L1 and E1 shapes split over their PRNs, the slice's
+   12 s int8 ring cut into four time shards with K8a's halo (a fast
+   superblock across a shard's end run on shard + halo) and K8b's sum of
+   four E5a-sized dwell grids: one launch per K8 call and per shard,
+   every result equal to the bit to one device's (the whole ring) or to
+   the plain version, K8a and K8b timed against their plain versions and
+   library calls; with two cards or more, again over the real cards.
+13. Prints one ``{"kernels": [...]}`` line, one ``{"slice": ...}`` line,
    one ``{"multiband": ...}`` line, one ``{"conditioned": ...}`` line,
    one ``{"variants": ...}`` line, one ``{"high_dynamics": ...,
-   "beamformer": ...}`` line and, last, ``{"ok": true, "device":
-   {...}}``.
+   "beamformer": ...}`` line, one ``{"parallel": ...}`` line and, last,
+   ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line. The script imports
 neither JAX nor the JAX package. Without CUDA, or without the package
@@ -1963,6 +1974,376 @@ def fused_loop_phase(torch, np, slice_mid, slice_launches, mb_mid, mb_band,
 
 
 # ---------------------------------------------------------------------------
+# the sharded path (gnss_sdr_tpu_torch/parallel/, K8)
+# ---------------------------------------------------------------------------
+
+#: shards of the logical mesh on one card
+PAR_SHARDS = 4
+#: one E5a noncoherent search's dwell grid [P, D, N] (36 PRNs, 32 bins,
+#: 12000 samples: 55 MB of float32), K8b's full size
+E5A_GRID = (36, 32, 12000)
+
+
+def k8_line(torch, name, call, plain, library, got, want, n_bytes, n_ops,
+            replaces, variant, shape, card):
+    """One K8 kernel line: ``got`` against the plain version's ``want``
+    (lists of tensors) to the bit; ``call``, the plain version and the
+    library call (``library``) timed with CUDA events over back-to-back
+    calls, ``call`` also as one synchronized call (``event_us``), its
+    kernel's device time from the profiler."""
+    err = max(float(torch.max(torch.abs(a.float() - b.float())))
+              for a, b in zip(got, want))
+    equal = all(torch.equal(a, b) for a, b in zip(got, want))
+    b, by = bound_ms(n_bytes, n_ops)
+    return dict(name=name, route="cuda",
+                source="gnss_sdr_tpu_torch/kernels/csrc/collectives.cu",
+                replaces=replaces, max_abs_err=err, rel_err=err, tol=0.0,
+                equal=equal, ms=time_ms(torch, call, 20),
+                device_us=kernel_device_us(torch, call, f"{name}_kernel"),
+                event_us=event_us(torch, call, 5),
+                plain_ms=time_ms(torch, plain, 20),
+                library_ms=time_ms(torch, library, 20),
+                bound_ms=b, bound_by=by, variant=variant, shape=shape,
+                card=card)
+
+
+def acq_input(np, eng, ring):
+    """The first dwell of ``eng``'s search on an int8 ``ring`` as its
+    engine prepares it."""
+    n = eng.cfg.consumed_samples
+    r = ring[:, :n].cpu().numpy().astype(np.float32)
+    return eng._prepare_buffer((r[0] + 1j * r[1]).astype(np.complex64), 0)
+
+
+def parallel_phase(torch, np, slice_mid, mb_mid, card):
+    """The sharded path on a logical mesh of PAR_SHARDS shards on the card,
+    at full width, from the states the receivers reached mid-run:
+
+    - channel-sharded engine calls (``parallel/engines.py``): the L1
+      slice's phase-B fast superblock (K1-loop, 8 channels, K = 20) and
+      its last phase-A scan superblock (K3-loop), the multi-band run's E1
+      phase-B superblock (K = 25, the data tap), 2 channels a shard;
+    - PRN-sharded PCPS grids (K2) at the L1 (8 PRNs x 40 bins x 4000) and
+      E1 (7 x 80 x 16000) shapes on the scenes' first dwells;
+    - K8a: the slice's 12 s planar int8 ring cut into PAR_SHARDS time
+      shards, each followed by a halo of one fast block plus the fast
+      engine's overlap; then the L1 fast superblock placed so that its
+      last block crosses the end of shard 0 (and of shard 1) run on that
+      shard plus its halo, its base moved by the shard's start;
+    - K8b: PAR_SHARDS seeded dwell grids at E5A_GRID summed.
+
+    The counters are set to 0 before these calls and read after them: one
+    launch per K8 call, one fused launch per shard and call. Then each
+    result is held to the bit against the unsharded call (the whole ring
+    for the halo's superblocks) or the kernel's plain version, K8a and K8b
+    are timed against their plain versions and library calls, each engine
+    call sharded and on one device is timed (one synchronized call,
+    median of three), and with two cards or more the engines and both
+    collectives run again over the real cards. Returns (kernel lines,
+    record)."""
+    from gnss_sdr_tpu_torch.acquisition.adapters import (
+        make_galileo_e1_acquisition, make_gps_l1ca_acquisition)
+    from gnss_sdr_tpu_torch.kernels import LAUNCHES, reset_launches
+    from gnss_sdr_tpu_torch.kernels import collectives as k8
+    from gnss_sdr_tpu_torch.kernels.acq import pcps_magnitude_grid
+    from gnss_sdr_tpu_torch.parallel import (channel_sharding, gather,
+                                             make_mesh)
+    from gnss_sdr_tpu_torch.parallel.engines import (ShardedEngine,
+                                                     gather_outputs,
+                                                     pcps_grid)
+    from gnss_sdr_tpu_torch.parallel.multihost import (
+        allreduce_noncoherent_grid, halo_exchange_blocks)
+
+    n_sh = PAR_SHARDS
+    mesh = make_mesh(n_sh, device="cuda", logical=True)
+    scan, (s_state, ring, s_base, s_n, codes, dcodes) = slice_mid["scan"]
+    fast, (f_state, f_ring, f_base, f_n, bank) = slice_mid["fast"]
+    e1, (e_state, e_ring, e_base, e_n, e_bank) = mb_mid["fast"]
+    calls = {
+        "L1 fast superblock (K1-loop)":
+            (fast, f_state, f_ring, f_base, f_n, bank, None),
+        "E1 fast superblock (K1-loop, K = 25, data tap)":
+            (e1, e_state, e_ring, e_base, e_n, e_bank, None),
+        "L1 scan superblock (K3-loop)":
+            (scan, s_state, ring, s_base, s_n, codes, dcodes)}
+    acq_l1 = make_gps_l1ca_acquisition(
+        sorted(scene_geometry()[1]), SCENE["fs"], doppler_max=5000.0,
+        doppler_step=250.0, max_dwells=2, device="cuda")
+    acq_e1 = make_galileo_e1_acquisition(
+        sorted(mb_geometry()[1]), SCENE["fs"], doppler_max=5000.0,
+        doppler_step=125.0, pfa=0.001, max_dwells=2, device="cuda")
+    searches = {"GPS L1 C/A": (acq_l1, acq_input(np, acq_l1, f_ring)),
+                "Galileo E1": (acq_e1, acq_input(np, acq_e1, e_ring))}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    dwell = torch.rand((n_sh,) + E5A_GRID, generator=gen, device="cuda")
+    length = f_ring.shape[1] // n_sh
+    halo = fast.overlap + fast.block_samples
+    span = (f_n - 1) * fast.block_samples + fast.block_samples // 2
+    edges = [g * length + length - span for g in (0, 1)]
+
+    # ---- the sharded path, counted ---------------------------------------
+    torch.cuda.synchronize()
+    reset_launches()
+    sharded = {}
+    for what, (eng, st, rg, base, n, tab, dtab) in calls.items():
+        sh = ShardedEngine(eng, mesh)
+        sts, outs = sh.superblock_ring_i8(sh.shard_state(st), rg, base, n,
+                                          tab, dtab)
+        sharded[what] = (gather(mesh, sts), gather_outputs(mesh, outs))
+    grids = {what: gather(mesh, pcps_grid(mesh, x, eng._code_fft,
+                                          eng._dopplers, eng._c0,
+                                          eng._offset, eng._eff))
+             for what, (eng, x) in searches.items()}
+    pieces = channel_sharding(mesh, dim=1).place(f_ring[:, :n_sh * length])
+    haloed = halo_exchange_blocks(mesh, pieces, halo)
+    edge = [fast.superblock_ring_i8(f_state, haloed[g], b - g * length,
+                                    f_n, bank)[1]["packed"]
+            for g, b in enumerate(edges)]
+    summed = allreduce_noncoherent_grid(mesh, dwell)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    want = {"fast_loop": 2 * n_sh + len(edges), "scan_loop": n_sh,
+            "acq_wipeoff": 2 * n_sh, "acq_product": 2 * n_sh,
+            "acq_accum": 2 * n_sh, "halo_exchange": 1, "grid_allreduce": 1}
+    if launches != want:
+        fail(f"parallel: launches {launches}, expected {want}")
+
+    # ---- held against one device and the plain versions (not counted) ---
+    checks, call_ms = {}, {}
+    for what, (eng, st, rg, base, n, tab, dtab) in calls.items():
+        args = (st, rg, base, n, tab) + ((dtab,) if dtab is not None
+                                         else ())
+        s1, o1 = eng.superblock_ring_i8(*args)
+        sn, on = sharded[what]
+        checks[what] = bool(torch.equal(o1["packed"], on["packed"])
+                            and all(torch.equal(a, b)
+                                    for a, b in zip(s1, sn)))
+        sh = ShardedEngine(eng, mesh)
+        states = sh.shard_state(st)
+        call_ms[what] = dict(
+            one_device=event_us(torch, lambda: eng.superblock_ring_i8(
+                *args), 3) / 1e3,
+            sharded=event_us(torch, lambda: sh.superblock_ring_i8(
+                states, rg, base, n, tab, dtab), 3) / 1e3)
+    for what, (eng, x) in searches.items():
+        g1 = pcps_magnitude_grid(x, eng._code_fft, eng._dopplers, eng._c0,
+                                 eng._offset, eng._eff)
+        checks[f"{what} grid {tuple(g1.shape)}"] = bool(
+            torch.equal(g1, grids[what]))
+    for g, b in enumerate(edges):
+        whole = fast.superblock_ring_i8(f_state, f_ring, b, f_n,
+                                        bank)[1]["packed"]
+        checks[f"superblock across the end of shard {g} on shard + halo"] \
+            = bool(torch.equal(whole, edge[g]))
+    want_halo = k8.halo_exchange_plain(pieces, halo)
+    want_sum = k8.grid_allreduce_plain(list(dwell.unbind(0)))
+    checks["K8a = plain"] = all(torch.equal(a, b)
+                                for a, b in zip(haloed, want_halo))
+    checks["K8b = plain"] = all(torch.equal(a, b)
+                                for a, b in zip(summed.unbind(0), want_sum))
+    print(f"chip_smoke: parallel checks: {json.dumps(checks)}",
+          file=sys.stderr, flush=True)
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        fail(f"parallel: sharded results differ from one device: {bad}")
+
+    # ---- K8a and K8b: times against the plain versions and the library --
+    rows = f_ring.shape[0]
+    zeros = torch.zeros((rows, halo), dtype=f_ring.dtype, device="cuda")
+    outs = [torch.empty((rows, length + halo), dtype=f_ring.dtype,
+                        device="cuda") for _ in range(n_sh)]
+
+    def cat_halo():
+        for g in range(n_sh):
+            tail = pieces[g + 1][:, :halo] if g + 1 < n_sh else zeros
+            torch.cat([pieces[g], tail], dim=1, out=outs[g])
+
+    red_out = torch.empty_like(dwell)
+
+    def stack_sum():
+        total = torch.stack(list(dwell.unbind(0))).sum(0)
+        for o in red_out.unbind(0):
+            o.copy_(total)
+
+    lines = [
+        k8_line(torch, "halo_exchange",
+                lambda: halo_exchange_blocks(mesh, pieces, halo),
+                lambda: k8.halo_exchange_plain(pieces, halo), cat_halo,
+                haloed, want_halo,
+                2.0 * n_sh * rows * (length + halo), 0.0,
+                "gnss_sdr_tpu/parallel/multihost.py:61",
+                "the slice's planar int8 ring in time shards",
+                f"n={n_sh} rows={rows} L={length} halo={halo} int8", card),
+        k8_line(torch, "grid_allreduce",
+                lambda: allreduce_noncoherent_grid(mesh, dwell),
+                lambda: k8.grid_allreduce_plain(list(dwell.unbind(0))),
+                stack_sum, list(summed.unbind(0)), want_sum,
+                2.0 * dwell.numel() * 4, (n_sh - 1) * float(dwell[0].numel()),
+                "gnss_sdr_tpu/parallel/multihost.py:85",
+                "E5a dwell grids",
+                f"n={n_sh} P x D x N = {E5A_GRID} float32", card)]
+    for ln in lines:
+        ln["launches"] = launches.get(ln["name"], 0)
+    report(lines)
+    record = dict(shards=n_sh, logical=True, checks=checks,
+                  launches=launches, call_ms=call_ms, halo=halo,
+                  shard_len=length,
+                  edge_bases=edges, card=card,
+                  cards=cards_run(torch, np, calls, dwell, pieces, halo,
+                                  k8))
+    return lines, record
+
+
+def cards_run(torch, np, calls, dwell, pieces, halo, k8):
+    """With two cards or more: the L1 fast superblock's channels and both
+    collectives over a mesh of the real cards (up to PAR_SHARDS), each
+    against one card to the bit; the superblock's wall time on one card
+    and sharded (the ring's window replicated, and for comparison the
+    whole ring); the peer access between the cards and the copies staged
+    where a card cannot read its peer; with four cards or more also
+    :func:`mp_run`. None on one card."""
+    from gnss_sdr_tpu_torch.parallel import make_mesh
+    from gnss_sdr_tpu_torch.parallel.engines import (ShardedEngine,
+                                                     gather_outputs)
+    from gnss_sdr_tpu_torch.parallel.multihost import (
+        allreduce_noncoherent_grid, halo_exchange_blocks)
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        print("chip_smoke: parallel: one card; only the logical mesh ran",
+              file=sys.stderr, flush=True)
+        return None
+    n = min(count, PAR_SHARDS)
+    mesh = make_mesh(n)
+    peer = {f"{a}->{b}": bool(torch.cuda.can_device_access_peer(a, b))
+            for a in range(n) for b in range(n) if a != b}
+    for key in k8.STAGED:
+        k8.STAGED[key] = 0
+    eng, st, rg, base, nb, tab, _ = next(iter(calls.values()))
+    sh = ShardedEngine(eng, mesh)
+    states = sh.shard_state(st)
+    _, outs = sh.superblock_ring_i8(states, rg, base, nb, tab)
+    got = gather_outputs(mesh, outs, "cuda:0")["packed"]
+    want = eng.superblock_ring_i8(st, rg, base, nb, tab)[1]["packed"]
+    ok = {"L1 fast superblock": bool(torch.equal(got, want))}
+
+    def wall_ms(fn):
+        """Median of three calls, every card synchronized around each."""
+        times = []
+        for _ in range(4):
+            for i in range(n):
+                torch.cuda.synchronize(i)
+            t = time.perf_counter()
+            fn()
+            for i in range(n):
+                torch.cuda.synchronize(i)
+            times.append((time.perf_counter() - t) * 1e3)
+        return sorted(times[1:])[1]
+
+    window = nb * eng.block_samples + eng.overlap
+    superblock_ms = dict(
+        one_card=wall_ms(lambda: eng.superblock_ring_i8(st, rg, base, nb,
+                                                        tab)),
+        sharded=wall_ms(lambda: sh.superblock_ring_i8(states, rg, base, nb,
+                                                      tab)),
+        sharded_whole_ring=wall_ms(lambda: sh.superblock_ring_i8(
+            states, sh.replicate(rg), base, nb, tab)),
+        window_bytes=2 * window, ring_bytes=int(rg.numel()))
+    shards = [p.to(d) for p, d in zip(pieces[:n], mesh.devices)]
+    haloed = halo_exchange_blocks(mesh, shards, halo)
+    plain = k8.halo_exchange_plain([s.to("cuda:0") for s in shards], halo)
+    ok["K8a"] = all(torch.equal(a.to("cuda:0"), b)
+                    for a, b in zip(haloed, plain))
+    grids = [g.to(d) for g, d in zip(dwell[:n].unbind(0), mesh.devices)]
+    summed = allreduce_noncoherent_grid(mesh, grids)
+    plain = k8.grid_allreduce_plain([g.to("cuda:0") for g in grids])
+    ok["K8b"] = all(torch.equal(a.to("cuda:0"), b)
+                    for a, b in zip(summed, plain))
+    out = dict(cards=n, peer_access=peer, staged=dict(k8.STAGED),
+               checks=ok, superblock_ms=superblock_ms)
+    print(f"chip_smoke: parallel over {n} cards: {json.dumps(out)}",
+          file=sys.stderr, flush=True)
+    if not all(ok.values()):
+        fail(f"parallel over {n} cards differs from one card: {ok}")
+    if count >= 4:
+        out["processes"] = mp_run(torch, np)
+    return out
+
+
+def mp_run(torch, np):
+    """``parallel/mp_worker.py`` in two processes of two cards each over
+    NCCL (rank r on cards 2r and 2r + 1), its gathered results held against
+    the same work in this process on card 0: the scan prompts and the fast
+    records to the bit, the halo exact, every shard's sum equal to the
+    plain sum in shard order."""
+    import socket
+
+    from gnss_sdr_tpu_torch.kernels import build as kbuild
+    from gnss_sdr_tpu_torch.kernels.collectives import grid_allreduce_plain
+    from gnss_sdr_tpu_torch.parallel import make_mesh
+    from gnss_sdr_tpu_torch.parallel.dryrun import (_example_inputs,
+                                                    fast_engine_sharded_case)
+    from gnss_sdr_tpu_torch.tracking.engine import (TrackingConfig,
+                                                    TrackingEngine)
+
+    outdir = os.path.join(kbuild.BUILD_DIR, "mp_run")
+    os.makedirs(outdir, exist_ok=True)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "gnss_sdr_tpu_torch.parallel.mp_worker",
+         str(rank), "2", f"127.0.0.1:{port}", outdir],
+        env=dict(os.environ, PYTHONPATH=ROOT), cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT) for rank in (0, 1)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0].decode(
+                errors="replace"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall_s = time.perf_counter() - t0
+    if any(p.returncode for p in procs):
+        fail(f"mp_worker over NCCL: exit codes "
+             f"{[p.returncode for p in procs]}: {logs[0][-1500:]} "
+             f"{logs[1][-1500:]}")
+    data = np.load(os.path.join(outdir, "mp_out.npz"))
+    n_dev = int(data["n_dev"])
+    eng = TrackingEngine(TrackingConfig(fs=1.0e5), 2 * n_dev, 400,
+                         device="cuda:0")
+    state, block_re, block_im, codes = _example_inputs(eng, seed=11)
+    prompts = []
+    for _ in range(3):
+        state, o = eng.process_block(state, block_re, block_im, codes)
+        prompts.append(o["packed"][..., 4].cpu().numpy())
+    shards = data["halo_in"]
+    tail = np.concatenate([shards[1:, :16], np.zeros((1, 16), np.float32)])
+    total = grid_allreduce_plain(
+        list(torch.as_tensor(data["grids"]).unbind(0)))[0].numpy()
+    fast_1, _ = fast_engine_sharded_case(make_mesh(1, device="cuda"), n_dev)
+    checks = {
+        "prompts": bool(np.array_equal(np.stack(prompts), data["prompts"])),
+        "halo": bool(np.array_equal(np.concatenate([shards, tail], axis=1),
+                                    data["haloed"])),
+        "sums": all(bool(np.array_equal(g, total)) for g in data["summed"]),
+        "fast": bool(data["fast_identical"])
+        and bool(np.array_equal(fast_1, data["fast_packed"]))}
+    out = dict(processes=2, cards_per_process=2, backend="nccl",
+               shards=n_dev, wall_s=wall_s, checks=checks)
+    print(f"chip_smoke: parallel over 2 processes: {json.dumps(out)}",
+          file=sys.stderr, flush=True)
+    if not all(checks.values()):
+        fail(f"mp_worker over NCCL differs from one process: {checks}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # K3-hd (the high-dynamics multicorrelator) and K7e (the beamformer)
 # ---------------------------------------------------------------------------
 
@@ -2992,6 +3373,7 @@ def main() -> int:
     e1 = mb_res["launches_by_band"]["1B"]
     fused_res = fused_loop_phase(torch, np, slice_mid, launches, mb_mid, e1,
                                  seg, card)
+    par_res, par_rec = parallel_phase(torch, np, slice_mid, mb_mid, card)
     # each kernel line's launches: the run of the path whose shapes it
     # was checked at (the L1 slice; the multi-band slice, where the fused
     # kernels count the E1 band's launches and K2 both bands'). K3 and K1
@@ -3013,7 +3395,8 @@ def main() -> int:
         r["card"] = card
     k7_res, cond_res = conditioned_phase(torch, np, kbuild.BUILD_DIR, card)
     print(json.dumps({"kernels": res + e1_res + k7_res + k5_res + k6_res
-                      + fused_res + hd_res + bf_res, "build_s": build_s}),
+                      + fused_res + hd_res + bf_res + par_res,
+                      "build_s": build_s}),
           flush=True)
     print(json.dumps({"slice": slice_res}), flush=True)
     print(json.dumps({"multiband": mb_res}), flush=True)
@@ -3022,6 +3405,7 @@ def main() -> int:
                                    "loops": loop_var}}), flush=True)
     print(json.dumps({"high_dynamics": hd_rec, "beamformer": bf_rec}),
           flush=True)
+    print(json.dumps({"parallel": par_rec}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -33,6 +33,8 @@ LAUNCHES: dict[str, int] = {
     "scan_loop": 0,     # K3-loop: the scan engine's fused tracking program
     "fast_loop": 0,     # K1-loop: the fast engine's fused tracking program
     "fast_loop_seg": 0,  # K1-loop with the segmented-sum body (K1-seg)
+    "halo_exchange": 0,  # K8a: time shards + their successors' heads
+    "grid_allreduce": 0,  # K8b: the shards' grids summed in shard order
 }
 
 

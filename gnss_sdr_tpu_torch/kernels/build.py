@@ -23,7 +23,7 @@ REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 BUILD_DIR = os.path.join(REPO_ROOT, "build", "kernels")
 SOURCES = ("multicorr", "bank_corr", "acq", "conditioner", "acq_variants",
-           "loops", "scan_loop", "fast_loop")
+           "loops", "scan_loop", "fast_loop", "collectives")
 NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
 

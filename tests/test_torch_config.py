@@ -70,8 +70,8 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
 def test_import_isolation():
     """Importing the port, every module of it (the conditioner, the live
     and LabSat sources, the Galileo E1 codes and I/NAV telemetry, the
-    multi-band receivers, the acquisition variants and the KF/Gaussian
-    loops among them) and chip_smoke leaves JAX and the
+    multi-band receivers, the acquisition variants, the KF/Gaussian
+    loops and the sharded path among them) and chip_smoke leaves JAX and the
     JAX package out of sys.modules (fresh interpreter: the test process
     itself has JAX loaded by conftest)."""
     code = r"""
@@ -109,7 +109,14 @@ need = {"gnss_sdr_tpu_torch.conditioner.chain",
         "gnss_sdr_tpu_torch.ops.kalman",
         "gnss_sdr_tpu_torch.ops.gaussian",
         "gnss_sdr_tpu_torch.codes.galileo_e5a",
-        "gnss_sdr_tpu_torch.codes._galileo_e5a_data"}
+        "gnss_sdr_tpu_torch.codes._galileo_e5a_data",
+        "gnss_sdr_tpu_torch.kernels.collectives",
+        "gnss_sdr_tpu_torch.parallel",
+        "gnss_sdr_tpu_torch.parallel.sharding",
+        "gnss_sdr_tpu_torch.parallel.multihost",
+        "gnss_sdr_tpu_torch.parallel.engines",
+        "gnss_sdr_tpu_torch.parallel.dryrun",
+        "gnss_sdr_tpu_torch.parallel.mp_worker"}
 assert need <= set(mods), need - set(mods)
 print("ok", len(mods))
 """

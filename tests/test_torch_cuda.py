@@ -347,10 +347,16 @@ def test_acq_kernels_at_e1_shapes(dev):
     torch.testing.assert_close(sk[0], sp[0], rtol=1e-4, atol=0)
 
 
-@pytest.mark.parametrize("fold,n", [(2, 4000), (2, 16000), (4, 16368)])
-def test_fold_wipeoff_kernel_matches_plain(dev, fold, n):
+def test_fold_wipeoff_kernel_matches_plain(dev):
     """K5a at QuickSync's L1 (1 ms) and E1 (4 ms) shapes: phases up to
-    ~125 rad at E1's last samples."""
+    ~125 rad at E1's last samples
+    (the cases run in one test: the tier-1 run's count of collected
+    tests sets xdist's schedule of the memory-heavy JAX tests)."""
+    for fold, n in ((2, 4000), (2, 16000), (4, 16368)):
+        _fold_wipeoff_case(dev, fold, n)
+
+
+def _fold_wipeoff_case(dev, fold, n):
     from gnss_sdr_tpu_torch.kernels import acq_variants as k5
     from gnss_sdr_tpu_torch.kernels.acq import wipeoff_scale
 
@@ -571,13 +577,20 @@ def _records_close(pa, pb, valid, start, rem, dopp, cn0, prompt):
                  .max()) < 0.02
 
 
-@pytest.mark.parametrize("case", ["l1", "e1-pilot-extended"])
-def test_scan_loop_matches_stepwise(dev, case):
+def test_scan_loop_matches_stepwise(dev):
     """K3-loop over one 10-block superblock from a pulled-in state against
     the per-step path on the card: the first step's correlations to the
     bit (K3's own body), every record and the end state within the JAX
     suite's tolerances; one launch per call, no K3 launch; the float32
-    planes of process_block and superblock_step likewise."""
+    planes of process_block and superblock_step likewise; L1 and the E1
+    pilot in extended integration
+    (the cases run in one test: the tier-1 run's count of collected
+    tests sets xdist's schedule of the memory-heavy JAX tests)."""
+    for case in ("l1", "e1-pilot-extended"):
+        _scan_loop_case(dev, case)
+
+
+def _scan_loop_case(dev, case):
     from gnss_sdr_tpu_torch.codes.galileo_e1 import E1C_SECONDARY
     from gnss_sdr_tpu_torch.kernels import LAUNCHES, reset_launches
 
@@ -651,16 +664,21 @@ def _fast_case(dev, case, correlator="bank"):
     return fast, ring, codes, dcodes, fs, base
 
 
-@pytest.mark.parametrize("case", ["fllpll", "kf", "gaussian", "e1-pilot",
-                                  "e1-k1"])
-def test_fast_loop_matches_stepwise(dev, case):
+def test_fast_loop_matches_stepwise(dev):
     """K1-loop over one superblock from a pulled-in state against the
     per-group path on the card (K1, K6 and PyTorch): the first group's
     prompts to the bit (K1's own body), every record, the group prompts
     and the end state within the JAX suite's tolerances; one launch per
     call and no K1 or K6 launch, for the three loops at L1 (K = 20), the
     E1 pilot with the data tap and CS25 (K = 25) and E1-B alone (K = 1);
-    process_block's float32 planes likewise."""
+    process_block's float32 planes likewise
+    (the cases run in one test: the tier-1 run's count of collected
+    tests sets xdist's schedule of the memory-heavy JAX tests)."""
+    for case in ("fllpll", "kf", "gaussian", "e1-pilot", "e1-k1"):
+        _fast_loop_case(dev, case)
+
+
+def _fast_loop_case(dev, case):
     from gnss_sdr_tpu_torch.kernels import LAUNCHES, reset_launches
 
     fast, ring, codes, dcodes, s, base = _fast_case(dev, case)
@@ -699,8 +717,7 @@ def test_fast_loop_matches_stepwise(dev, case):
         assert float(((mag - ref).abs() / ref).max()) < 0.02
 
 
-@pytest.mark.parametrize("case", ["fllpll", "e1-pilot"])
-def test_fast_loop_segsum_matches_stepwise(dev, case, monkeypatch):
+def test_fast_loop_segsum_matches_stepwise(dev, monkeypatch):
     """K1-loop with the segmented-sum body (K1-seg) over one superblock
     from a pulled-in state against the per-group path on the card: the
     plain version differences float32 prefix sums where the kernel sums
@@ -709,7 +726,15 @@ def test_fast_loop_segsum_matches_stepwise(dev, case, monkeypatch):
     record, the group prompts and the end state within the JAX suite's
     tolerances; one fast_loop_seg launch per call, no other launch and no
     call of the per-group path; L1 (K = 20) and the E1 pilot with the
-    data prompt and CS25 (K = 25)."""
+    data prompt and CS25 (K = 25)
+    (the cases run in one test: the tier-1 run's count of collected
+    tests sets xdist's schedule of the memory-heavy JAX tests)."""
+    for case in ("fllpll", "e1-pilot"):
+        with monkeypatch.context() as mp:
+            _fast_loop_segsum_case(dev, case, mp)
+
+
+def _fast_loop_segsum_case(dev, case, monkeypatch):
     from gnss_sdr_tpu_torch.kernels import LAUNCHES, reset_launches
     from gnss_sdr_tpu_torch.tracking.fast_engine import FastTrackingEngine
 
@@ -862,3 +887,67 @@ def test_beamform_kernel_matches_plain(dev):
     jam_single = x[0] - array_response(m, 0.5, 10.0)[0] * sig
     assert np.mean(np.abs(y - corr * sig) ** 2) < 0.2 * np.mean(
         np.abs(jam_single) ** 2)
+
+
+def test_collectives_match_plain(dev):
+    """K8a and K8b against their plain versions on a logical mesh of four
+    shards on one card, to the bit, one launch per wrapper call: K8a on
+    float32 [4, L] rows and on the planar int8 ring's time shards (views
+    of the ring; L a multiple of 16 and not), with and without a next
+    rank's head; K8b on [D, N] grids (one whose rows are not 16-byte
+    aligned: the element-wise path) for every shard and for two of four
+    (one process's). With two cards or more, the same over a mesh of the
+    real cards (peer reads, or staged copies where a card cannot read its
+    peer)."""
+    from gnss_sdr_tpu_torch.kernels import LAUNCHES, reset_launches
+    from gnss_sdr_tpu_torch.kernels import collectives as k8
+    from gnss_sdr_tpu_torch.parallel import make_mesh
+    from gnss_sdr_tpu_torch.parallel.multihost import (
+        allreduce_noncoherent_grid, halo_exchange_blocks)
+
+    rng = np.random.default_rng(8)
+    mesh = make_mesh(4, device=dev, logical=True)
+    for length, halo in ((4096, 1000), (1001, 13)):
+        x = torch.as_tensor(rng.standard_normal((4, length))
+                            .astype(np.float32), device=dev)
+        reset_launches()
+        got = halo_exchange_blocks(mesh, x, halo)
+        assert LAUNCHES["halo_exchange"] == 1
+        assert torch.equal(got, torch.stack(
+            k8.halo_exchange_plain(list(x.unbind(0)), halo)))
+        ring = _ring(dev, 4 * length, length)
+        pieces = [ring[:, g * length:(g + 1) * length] for g in range(4)]
+        for head in (None, ring[:, :halo].clone()):
+            reset_launches()
+            got = k8.halo_exchange(pieces, halo, head)
+            assert LAUNCHES["halo_exchange"] == 1
+            want = k8.halo_exchange_plain(pieces, halo, head)
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+    for shape in ((32, 1200), (7, 13)):
+        g = torch.as_tensor(rng.standard_normal((4,) + shape)
+                            .astype(np.float32) ** 2, device=dev)
+        want = k8.grid_allreduce_plain(list(g.unbind(0)))
+        reset_launches()
+        got = allreduce_noncoherent_grid(mesh, g)
+        assert LAUNCHES["grid_allreduce"] == 1
+        assert torch.equal(got, torch.stack(want))
+        reset_launches()
+        part = k8.grid_allreduce(list(g.unbind(0)), local=[2, 3])
+        assert LAUNCHES["grid_allreduce"] == 1 and len(part) == 2
+        assert all(torch.equal(p, want[0]) for p in part)
+    if torch.cuda.device_count() < 2:
+        return
+    cards = make_mesh(2)
+    x = torch.as_tensor(rng.standard_normal((2, 2, 5000)).astype(np.int8)
+                        .astype(np.float32), device=dev)
+    shards = [x[i].to(d) for i, d in enumerate(cards.devices)]
+    reset_launches()
+    got = halo_exchange_blocks(cards, shards, 700)
+    assert LAUNCHES["halo_exchange"] == 2           # one launch a card
+    want = k8.halo_exchange_plain([s.to(dev) for s in shards], 700)
+    assert all(o.device == d and torch.equal(o.to(dev), w)
+               for o, d, w in zip(got, cards.devices, want))
+    grids = [(x[i, 0] ** 2).to(d) for i, d in enumerate(cards.devices)]
+    got = allreduce_noncoherent_grid(cards, grids)
+    want = k8.grid_allreduce_plain([gr.to(dev) for gr in grids])
+    assert all(torch.equal(o.to(dev), w) for o, w in zip(got, want))

@@ -135,7 +135,8 @@ PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 
 TOL = {"bank_corr": 1e-4, "multicorr": 1e-3, "acq_wipeoff": 1e-4,
-       "acq_product": 1e-4, "acq_accum": 1e-4, "acq_stats": 1e-4,
+       # K2b does the plain version's float32 operations exactly
+       "acq_product": 0.0, "acq_accum": 1e-4, "acq_stats": 1e-4,
        # K7, relative to the rms of the plain output: K7a sums its taps in
        # the plain version's order with the same roundings, so only the
        # float64 sincos of two libraries can differ (an ulp of float32);
@@ -264,6 +265,18 @@ def kernel_device_us(torch, fn, kernel_symbol: str):
     return us / n
 
 
+def library_device(torch, fn) -> dict:
+    """The device time of a library call that launches each of its
+    kernels once: the sum of their us a launch, and those kernels by
+    name, from the profiler as for a hand kernel (a launch's mean, so a
+    launch the profiler drops does not lower it; the line's
+    ``library_ms`` includes the host)."""
+    _, _, kernels = profile(torch, fn)
+    return dict(library_device_us=sum(u for u, _ in kernels.values())
+                if kernels else None,
+                library_kernels={k: u for k, (u, _) in kernels.items()})
+
+
 def event_us(torch, fn, reps: int = 10) -> float:
     """Median time of one call of ``fn`` in microseconds, CUDA events
     around a single call between two synchronizations: the device time
@@ -280,6 +293,54 @@ def event_us(torch, fn, reps: int = 10) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b) * 1e3)
     return sorted(times)[reps // 2]
+
+
+def host_us(torch, steps: dict, reps: int = 1000) -> dict:
+    """Median host microseconds of one call of each function in
+    ``steps`` (name -> function): ``time.perf_counter_ns`` around single
+    calls that do not synchronize; the card is drained every 50 calls,
+    outside the timed calls, so the launch queue never fills."""
+    out = {}
+    for name, fn in steps.items():
+        fn()
+        torch.cuda.synchronize()
+        ts = []
+        for i in range(reps):
+            t0 = time.perf_counter_ns()
+            fn()
+            ts.append(time.perf_counter_ns() - t0)
+            if i % 50 == 49:
+                torch.cuda.synchronize()
+        out[name] = sorted(ts)[reps // 2] / 1e3
+    return out
+
+
+def k2b_host_split(torch, spec, code_fft) -> dict:
+    """K2b's wrapper host time a call (``call``) and its parts: the two
+    ``.contiguous()``, the output's allocation, the stream lookup, the
+    ctypes launch of the kernel alone, and ``other`` = the call less
+    those four parts (checks, pointers, counting); beside it the library
+    call's host time."""
+    from gnss_sdr_tpu_torch.kernels import acq
+    from gnss_sdr_tpu_torch.kernels import build as kb
+
+    (d, n), p = spec.shape, code_fft.shape[0]
+    out = acq.acq_product(spec, code_fft)
+    fn = kb.function("acq", "acq_product", [kb.VP, kb.VP, kb.I32, kb.I32,
+                                            kb.I32, kb.VP, kb.VP])
+    args = (spec.data_ptr(), code_fft.data_ptr(), n, d, p, out.data_ptr(),
+            kb.stream_ptr())
+    r = host_us(torch, {
+        "call": lambda: acq.acq_product(spec, code_fft),
+        "contiguous": lambda: (spec.contiguous(), code_fft.contiguous()),
+        "empty": lambda: spec.new_empty((p, d, n)),
+        "stream": kb.stream_ptr,
+        "launch": lambda: fn(*args),
+        "library": lambda: spec[None] * code_fft[:, None]})
+    torch.cuda.synchronize()
+    r["other"] = r["call"] - (r["contiguous"] + r["empty"] + r["stream"]
+                              + r["launch"])
+    return r
 
 
 def rel_err(torch, got, want) -> float:
@@ -536,6 +597,9 @@ def check_k2_engine(torch, np, eng, xs, variant):
     spec = torch.fft.fft(wp, dim=-1)
     pk = acq.acq_product(spec, code_fft)
     pp = acq.acq_product_plain(spec, code_fft)
+    torch.cuda.synchronize()
+    if not torch.equal(pk, pp):
+        fail(f"acq_product ({variant}) is not its plain version to the bit")
     entry("acq_product", torch.view_as_real(pk), torch.view_as_real(pp),
           time_ms(torch, lambda: acq.acq_product(spec, code_fft)),
           time_ms(torch, lambda: acq.acq_product_plain(spec, code_fft)),
@@ -544,6 +608,9 @@ def check_k2_engine(torch, np, eng, xs, variant):
           device_us=kernel_device_us(
               torch, lambda: acq.acq_product(spec, code_fft),
               "product_kernel"))
+    out[-1]["host_us"] = k2b_host_split(torch, spec, code_fft)
+    out[-1].update(library_device(torch,
+                                  lambda: spec[None] * code_fft[:, None]))
     corrs = []
     for x in xs:
         sp = torch.fft.fft(acq.acq_wipeoff_plain(x, dop, c0), dim=-1)
@@ -610,7 +677,12 @@ def report(res):
               f"{r['rel_err']:.3g} (tol {r['tol']}), {r['ms'] * 1e3:.2f} "
               f"us/call, {dev_us} us on the device, plain "
               f"{r['plain_ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.3f} "
-              f"us ({r['bound_by']})", file=sys.stderr, flush=True)
+              f"us ({r['bound_by']})"
+              + (f", wrapper host {r['host_us']['call']:.2f} us"
+                 if "host_us" in r else "")
+              + (f", library {r['library_device_us']:.2f} us on the device"
+                 if r.get("library_device_us") is not None else ""),
+              file=sys.stderr, flush=True)
         if not r["rel_err"] <= r["tol"]:
             fail(f"{r['name']} ({r['variant']}) disagrees with its plain "
                  f"version: {r['rel_err']} > {r['tol']}")
@@ -2525,10 +2597,13 @@ def beamformer_phase(torch, np, card):
     direction, a 20 dB jammer off it), the counters read around the call:
     the JAX test's gain (``||corr| - 1| < 0.05``) and null (residual
     jammer power under 0.2 of one antenna's) bounds on the card's output,
-    and its host->device, device and device->host split. Then the kernel
-    against its plain version (JAX's einsums) and the library call
-    (``torch.matmul`` of complex64 [1, M] by [M, N], TF32 off) on the same
-    card tensors. Returns (kernel lines, record)."""
+    and its host->device, device and device->host split, of the first
+    call and of a second one on the same capture. Then the kernel
+    on the capture as ``apply`` sends it (complex64, interleaved) against
+    its plain version (JAX's einsums), against itself on two contiguous
+    planes (to the bit) and the library call (``torch.matmul`` of
+    complex64 [1, M] by [M, N], TF32 off) on the same card tensors.
+    Returns (kernel lines, record)."""
     from gnss_sdr_tpu_torch.conditioner.beamformer import (BeamformerFilter,
                                                            array_response)
     from gnss_sdr_tpu_torch.kernels import LAUNCHES, reset_launches
@@ -2559,11 +2634,17 @@ def beamformer_phase(torch, np, card):
     launches = {k: v for k, v in LAUNCHES.items() if v}
     if launches != {"beamform": 1}:
         fail(f"beamformer: launches {launches}, not one beamform")
+    timings = dict(bf.timings)
+    # the same capture again: the first call also loads the kernel library
+    # and launches the kernel for the first time
+    if not np.array_equal(bf.apply(x), y):
+        fail("beamformer: a second apply gave another output")
     corr = np.vdot(sig, y) / np.vdot(sig, sig)
     jam_res = float(np.mean(np.abs(y - corr * sig) ** 2))
     jam_single = float(np.mean(np.abs(x[0] - a_sig[0] * sig) ** 2))
     rec = dict(gain=float(abs(corr)), residual_over_one_antenna=jam_res
-               / jam_single, timings=dict(bf.timings), apply_s=apply_s,
+               / jam_single, timings=timings,
+               second_timings=dict(bf.timings), apply_s=apply_s,
                generate_s=gen_s, m=m, n=n, launches=launches, card=card)
     print(f"chip_smoke: beamformer: {json.dumps(rec)}", file=sys.stderr,
           flush=True)
@@ -2572,14 +2653,19 @@ def beamformer_phase(torch, np, card):
     if not jam_res < 0.2 * jam_single:
         fail(f"beamformer: jammer residual {jam_res} >= 0.2 x {jam_single}")
 
-    x_re = torch.as_tensor(np.ascontiguousarray(x.real), device="cuda")
-    x_im = torch.as_tensor(np.ascontiguousarray(x.imag), device="cuda")
+    # the capture as apply() sends it (complex64 [M, N], interleaved) and
+    # as two contiguous planes: K7e gives the same bits from both
+    xc = torch.as_tensor(x, device="cuda")
+    x_re, x_im = (a.contiguous() for a in torch.view_as_real(xc).unbind(-1))
     w_re, w_im = bf._w_re, bf._w_im
-    got = torch.complex(*k7.beamform(x_re, x_im, w_re, w_im))
+    got = k7.beamform_complex(xc, w_re, w_im)
+    planar = torch.complex(*k7.beamform(x_re, x_im, w_re, w_im))
     want = torch.complex(*k7.beamform_plain(x_re, x_im, w_re, w_im))
+    torch.cuda.synchronize()
+    if not torch.equal(got, planar):
+        fail("beamform: the interleaved and the planar capture differ")
     rms = float(torch.sqrt(torch.mean(torch.abs(want) ** 2)))
     err = float(torch.max(torch.abs(got - want)))
-    xc = torch.complex(x_re, x_im)
     wc = torch.complex(w_re, w_im)[None, :]
     b, by = bound_ms(8 * m * n + 8 * n, 8 * m * n)
     line = dict(
@@ -2588,16 +2674,19 @@ def beamformer_phase(torch, np, card):
         replaces="gnss_sdr_tpu/conditioner/beamformer.py:20",
         launches=launches.get("beamform", 0), max_abs_err=err,
         rel_err=err / rms, tol=TOL["beamform"],
-        ms=time_ms(torch, lambda: k7.beamform(x_re, x_im, w_re, w_im), 20),
+        ms=time_ms(torch, lambda: k7.beamform_complex(xc, w_re, w_im), 20),
         device_us=kernel_device_us(
-            torch, lambda: k7.beamform(x_re, x_im, w_re, w_im),
+            torch, lambda: k7.beamform_complex(xc, w_re, w_im),
             "beamform_kernel"),
+        planar_ms=time_ms(torch, lambda: k7.beamform(x_re, x_im, w_re, w_im),
+                          20),
         plain_ms=time_ms(torch, lambda: k7.beamform_plain(x_re, x_im, w_re,
                                                           w_im), 10),
         bound_ms=b, bound_by=by,
         library_ms=time_ms(torch, lambda: torch.matmul(wc, xc), 20),
-        variant="8-antenna ULA, 1 s at 4 Msps", shape=f"M={m} N={n}",
-        card=card)
+        variant="8-antenna ULA, 1 s at 4 Msps",
+        shape=f"M={m} N={n} complex64 interleaved", card=card)
+    line.update(library_device(torch, lambda: torch.matmul(wc, xc)))
     report([line])
     return [line], rec
 

@@ -4,8 +4,10 @@ Port of ``gnss_sdr_tpu/conditioner/beamformer.py``, the counterpart of
 gnss-sdr's ``Beamformer_Filter`` (gnuradio_blocks/beamformer.cc:54-60:
 per-sample sum of the 8 antenna channels times a complex weight vector),
 plus the steering-vector helpers for a uniform linear array. The
-combination is the K7e kernel (``kernels/conditioner.py::beamform``) on
-the card and its plain version, JAX's einsums, on the CPU.
+combination is the K7e kernel (``kernels/conditioner.py::
+beamform_complex``) on the card, reading the complex64 capture as it is
+(JAX splits it into float32 planes on the host), and its plain version,
+JAX's einsums, on the CPU.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import numpy as np
 import torch
 
 from gnss_sdr_tpu_torch.device import resolve_device
-from gnss_sdr_tpu_torch.kernels.conditioner import beamform
+from gnss_sdr_tpu_torch.kernels.conditioner import beamform_complex
 
 
 def steering_weights(n_antennas: int, spacing_wavelengths: float,
@@ -68,23 +70,22 @@ class BeamformerFilter:
             torch.cuda.synchronize(self.device)
 
     def apply(self, x: np.ndarray) -> np.ndarray:
-        """[M, N] complex -> [N] complex."""
+        """[M, N] complex -> [N] complex64. The capture goes to the device
+        as one complex64 array and the output comes back as one."""
         x = np.asarray(x)
         if x.shape[0] != self.n_antennas:
             raise ValueError(
                 f"expected {self.n_antennas} antenna channels, "
                 f"got {x.shape[0]}")
         t0 = time.perf_counter()
-        x_re = torch.from_numpy(np.ascontiguousarray(x.real, np.float32)).to(
-            self.device)
-        x_im = torch.from_numpy(np.ascontiguousarray(x.imag, np.float32)).to(
+        xd = torch.from_numpy(np.ascontiguousarray(x, np.complex64)).to(
             self.device)
         self._sync()
         t1 = time.perf_counter()
-        re, im = beamform(x_re, x_im, self._w_re, self._w_im)
+        y = beamform_complex(xd, self._w_re, self._w_im)
         self._sync()
         t2 = time.perf_counter()
-        out = re.cpu().numpy() + 1j * im.cpu().numpy()
+        out = y.cpu().numpy()
         self.timings = {"h2d_s": t1 - t0, "device_s": t2 - t1,
                         "d2h_s": time.perf_counter() - t2}
         return out

@@ -138,16 +138,21 @@ def acq_wipeoff(x, dopplers, c0: float):
 def acq_product(spec, code_fft):
     """[P, D, N] complex64 products spec[d] * code_fft[p] (the code
     spectra are already conjugated)."""
-    if spec.device.type == "cpu":
+    if spec.is_cpu:
         return acq_product_plain(spec, code_fft)
-    _cuda(spec, "acq_product")
-    if spec.dtype != torch.complex64 or code_fft.dtype != torch.complex64:
-        raise ValueError("acq_product: complex64 inputs expected")
+    if not spec.is_cuda:
+        raise ValueError(f"acq_product: unsupported device {spec.device}")
+    if spec.dtype != torch.complex64 or code_fft.dtype != torch.complex64 \
+            or spec.dim() != 2 or code_fft.dim() != 2 \
+            or code_fft.shape[1] != spec.shape[1] \
+            or code_fft.get_device() != spec.get_device():
+        raise ValueError("acq_product: complex64 spec [D, N] and code "
+                         "spectra [P, N] on one card expected")
     spec = spec.contiguous()
     code_fft = code_fft.contiguous()
     d, n = spec.shape
     p = code_fft.shape[0]
-    out = torch.empty((p, d, n), dtype=torch.complex64, device=spec.device)
+    out = spec.new_empty((p, d, n))
     err = _fn("acq_product", [kb.VP, kb.VP, kb.I32, kb.I32, kb.I32, kb.VP,
                               kb.VP])(
         spec.data_ptr(), code_fft.data_ptr(), n, d, p, out.data_ptr(),

@@ -174,9 +174,13 @@ def pointer_struct(names: tuple[str, ...]) -> type:
 
 
 def stream_ptr() -> int:
+    """The current CUDA stream of the current device as a ``cudaStream_t``
+    (a Python int): what ``torch.cuda.current_stream().cuda_stream`` gives,
+    read from PyTorch's C API without building a ``Stream`` object on
+    every launch."""
     import torch
 
-    return torch.cuda.current_stream().cuda_stream
+    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
 
 
 VP = ctypes.c_void_p

@@ -18,9 +18,12 @@ Each takes complex64 samples (1-D) and returns complex64:
   at k * fs_in / fs_out or the Direct_Resampler's nearest-below sample,
   both with positions computed from the integer k in float64
   (``resampler.py::mmse_resample``, ``direct_resample_indices``);
-- :func:`beamform` (K7e): planar float32 antenna channels [M, N] times
-  complex weights [M] summed over the antennas, planar [N] out
-  (``beamformer.py::beamform``, ``BeamformerFilter``'s combiner).
+- :func:`beamform` (K7e): float32 antenna channels [M, N] (two planes,
+  or the two halves of one interleaved complex64 capture) times complex
+  weights [M] summed over the antennas, (re, im) [N] out
+  (``beamformer.py::beamform``); :func:`beamform_complex` the same on a
+  complex64 capture [M, N], complex64 [N] out (``BeamformerFilter``'s
+  combiner).
 
 Each takes its ``*_plain`` PyTorch version for a CPU tensor and launches
 its kernel in ``csrc/conditioner.cu`` for a CUDA tensor.
@@ -259,12 +262,10 @@ def resample(x, fs_in: float, fs_out: float, mode: int):
     return y
 
 
-def beamform(x_re, x_im, w_re, w_im):
-    """The beamformer's output (y_re, y_im), float32 [N] each, of the
-    planar antenna channels ``x_re``, ``x_im`` float32 [M, N] and the
-    complex weights ``w_re``, ``w_im`` float32 [M]."""
-    if x_re.device.type == "cpu":
-        return beamform_plain(x_re, x_im, w_re, w_im)
+def _beamform_launch(x_re, x_im, w_re, w_im):
+    """K7e on the card: complex64 [N] of the float32 [M, N] channels
+    ``x_re``, ``x_im`` (any strides, the same for both) and the weights
+    ``w_re``, ``w_im`` [M]."""
     if x_re.device.type != "cuda":
         raise ValueError(f"beamform: unsupported device {x_re.device}")
     m = x_re.shape[0]
@@ -272,19 +273,44 @@ def beamform(x_re, x_im, w_re, w_im):
                      (w_im, (m,))):
         if a.dtype != torch.float32 or a.device != x_re.device \
                 or tuple(a.shape) != tuple(shape):
-            raise ValueError("beamform: float32 [M, N] planes and [M] "
+            raise ValueError("beamform: float32 [M, N] channels and [M] "
                              "weights on one device expected")
-    if x_re.dim() != 2 or x_re.shape[1] < 1:
-        raise ValueError("beamform: [M, N] antenna channels expected")
-    x_re, x_im = x_re.contiguous(), x_im.contiguous()
-    w = torch.cat([w_re, w_im]).contiguous()
+    if x_re.dim() != 2 or x_re.shape[1] < 1 \
+            or x_re.stride() != x_im.stride() or min(x_re.stride()) < 1:
+        raise ValueError("beamform: [M, N] antenna channels of one layout "
+                         "expected")
+    w_re, w_im = w_re.contiguous(), w_im.contiguous()
     n = x_re.shape[1]
-    y_re = torch.empty(n, dtype=torch.float32, device=x_re.device)
-    y_im = torch.empty_like(y_re)
-    err = _fn("beamform", [kb.VP, kb.VP, kb.I32, kb.I64, kb.VP, kb.VP,
-                           kb.VP, kb.VP])(
-        x_re.data_ptr(), x_im.data_ptr(), m, n, w.data_ptr(),
-        y_re.data_ptr(), y_im.data_ptr(), kb.stream_ptr())
+    y = torch.empty(n, dtype=torch.complex64, device=x_re.device)
+    err = _fn("beamform", [kb.VP, kb.VP, kb.I64, kb.I64, kb.I32, kb.I64,
+                           kb.VP, kb.VP, kb.VP, kb.VP])(
+        x_re.data_ptr(), x_im.data_ptr(), x_re.stride(1), x_re.stride(0), m,
+        n, w_re.data_ptr(), w_im.data_ptr(), y.data_ptr(), kb.stream_ptr())
     kb.check(err, "beamform")
     LAUNCHES["beamform"] += 1
-    return y_re, y_im
+    return y
+
+
+def beamform(x_re, x_im, w_re, w_im):
+    """The beamformer's output (y_re, y_im), float32 [N] each, of the
+    antenna channels ``x_re``, ``x_im`` float32 [M, N] (contiguous planes,
+    or the two planes of one interleaved complex64 capture,
+    ``torch.view_as_real(x).unbind(-1)``) and the complex weights
+    ``w_re``, ``w_im`` float32 [M]. On the card the two are views of one
+    complex64 output."""
+    if x_re.device.type == "cpu":
+        return beamform_plain(x_re, x_im, w_re, w_im)
+    return torch.view_as_real(_beamform_launch(x_re, x_im, w_re,
+                                               w_im)).unbind(-1)
+
+
+def beamform_complex(x, w_re, w_im):
+    """The beamformer's output, complex64 [N], of the complex64 capture
+    ``x`` [M, N] and the weights ``w_re``, ``w_im`` float32 [M]; on the
+    card K7e reads ``x`` as it lies, interleaved."""
+    if x.dtype != torch.complex64:
+        raise ValueError("beamform_complex: complex64 [M, N] expected")
+    x_re, x_im = torch.view_as_real(x).unbind(-1)
+    if x.device.type == "cpu":
+        return torch.complex(*beamform_plain(x_re, x_im, w_re, w_im))
+    return _beamform_launch(x_re, x_im, w_re, w_im)

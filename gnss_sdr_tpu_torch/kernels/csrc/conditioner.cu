@@ -12,9 +12,9 @@
 //   K7d resampler.py::mmse_resample and the Direct_Resampler gather of
 //       chain.py (resample_kernel);
 //   K7e beamformer.py::beamform, the antenna-array combiner of
-//       BeamformerFilter (beamform_kernel): y = sum_m w_m x_m over planar
-//       float32 [M, N] channels, as JAX's four einsums then their
-//       difference and sum.
+//       BeamformerFilter (beamform_kernel): y = sum_m w_m x_m over the
+//       M antenna channels, as JAX's four einsums then their difference
+//       and sum.
 //
 // All samples are interleaved complex64 (float2). Every pass reads each
 // input once and writes each output once, so all four are bound by HBM
@@ -30,8 +30,13 @@
 //       on the float bit patterns (four 8-bit passes of shared-memory
 //       histograms with integer atomics), then masks.
 //   K7d computes each output position from its integer index in float64.
-//   K7e keeps the M complex weights in shared memory and makes one pass:
-//       8 M N bytes read, 8 N written (~86 us at M = 8, N = 4 M).
+//   K7e makes one pass, 8 M N bytes read, 8 N written (~86 us at M = 8,
+//       N = 4 M). It reads the capture as the card holds it, interleaved
+//       complex64 [M, N]: a thread takes two samples, one 16-byte load
+//       from each of the M rows (up to 8 in flight at once, each asking
+//       L2 for its whole 256-byte block) and one 16-byte store. Planar or
+//       misaligned input takes one sample a thread with the same
+//       arithmetic.
 //
 // Rounding: products and sums the plain PyTorch version computes as
 // separate roundings are written with __f*_rn (no FMA contraction); the
@@ -302,32 +307,104 @@ resample_kernel(const float2* __restrict__ x, long long n_in, double ratio,
 
 constexpr int kMaxAntennas = 32;
 
-// y_re = sum_m x_re w_re - sum_m x_im w_im, y_im = sum_m x_re w_im +
-// sum_m x_im w_re (beamformer.py::beamform's four einsums, each summed
-// over m in order, then combined); w = [w_re (M), w_im (M)]
+// One output sample of beamformer.py::beamform's four einsums: rr = sum_m
+// x_re w_re, ii = sum_m x_im w_im, ri = sum_m x_re w_im, ir = sum_m x_im
+// w_re, each a chain of fused multiply-adds over m in order, then
+// y = (rr - ii, ri + ir).
+struct Beam {
+  float rr = 0.0f, ii = 0.0f, ri = 0.0f, ir = 0.0f;
+  __device__ __forceinline__ void add(float xr, float xi, float wr,
+                                      float wi) {
+    rr = __fmaf_rn(xr, wr, rr);
+    ii = __fmaf_rn(xi, wi, ii);
+    ri = __fmaf_rn(xr, wi, ri);
+    ir = __fmaf_rn(xi, wr, ir);
+  }
+  __device__ __forceinline__ float2 out() const {
+    return make_float2(__fsub_rn(rr, ii), __fadd_rn(ri, ir));
+  }
+};
+
+// A 16-byte read-only load that asks L2 to fetch the whole 256-byte
+// block around it: K7e's rows are streamed once, in order.
+__device__ __forceinline__ float4 load_stream4(const float* p) {
+  float4 v;
+  asm volatile("ld.global.nc.L2::256B.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "l"(p));
+  return v;
+}
+
+// y[k] = sum_m w_m x_m[k], y complex64. Antenna m's sample k is
+// (x_re[m ld + k es], x_im[m ld + k es]) (floats); the weights are read
+// from shared memory. kPairs: interleaved rows (x_im = x_re + 1, es = 2)
+// with 16-byte aligned row starts and y: thread q takes the samples 2q,
+// 2q + 1, one float4 load from each row, kLoadBatch rows' loads issued
+// before their sums, and one float4 store, and thread n / 2 the odd last
+// sample; else thread k takes sample k. One thread an item, no grid
+// stride: a grid of whole waves striding over the samples came out
+// slower.
+constexpr int kLoadBatch = 8;
+
+template <bool kPairs>
 __global__ void __launch_bounds__(kThreads)
 beamform_kernel(const float* __restrict__ x_re, const float* __restrict__ x_im,
-                int m_ant, long long n, const float* __restrict__ w,
-                float* __restrict__ y_re, float* __restrict__ y_im) {
+                long long es, long long ld, int m_n, long long n,
+                const float* __restrict__ w_re, const float* __restrict__ w_im,
+                float2* __restrict__ y) {
   __shared__ float s_w[2 * kMaxAntennas];
-  for (int i = threadIdx.x; i < 2 * m_ant; i += blockDim.x) s_w[i] = w[i];
-  __syncthreads();
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long k = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       k < n; k += stride) {
-    float rr = 0.0f, ii = 0.0f, ri = 0.0f, ir = 0.0f;
-    for (int m = 0; m < m_ant; ++m) {
-      const float xr = x_re[m * n + k], xi = x_im[m * n + k];
-      const float wr = s_w[m], wi = s_w[m_ant + m];
-      rr = __fmaf_rn(xr, wr, rr);
-      ii = __fmaf_rn(xi, wi, ii);
-      ri = __fmaf_rn(xr, wi, ri);
-      ir = __fmaf_rn(xi, wr, ir);
-    }
-    y_re[k] = __fsub_rn(rr, ii);
-    y_im[k] = __fadd_rn(ri, ir);
+  for (int i = threadIdx.x; i < m_n; i += blockDim.x) {
+    s_w[i] = w_re[i];
+    s_w[kMaxAntennas + i] = w_im[i];
   }
+  __syncthreads();
+  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  auto sample = [&](long long k) {
+    Beam b;
+    for (int m = 0; m < m_n; ++m) {
+      const long long at = m * ld + k * es;
+      b.add(x_re[at], x_im[at], s_w[m], s_w[kMaxAntennas + m]);
+    }
+    y[k] = b.out();
+  };
+  if (!kPairs) {
+    if (t < n) sample(t);
+    return;
+  }
+  const long long pairs = n >> 1;
+  if (t >= pairs) {
+    if (t == pairs && (n & 1)) sample(n - 1);
+    return;
+  }
+  Beam lo, hi;
+  for (int m0 = 0; m0 < m_n; m0 += kLoadBatch) {
+    float4 v[kLoadBatch];
+#pragma unroll
+    for (int j = 0; j < kLoadBatch; ++j)
+      if (m0 + j < m_n) v[j] = load_stream4(x_re + (m0 + j) * ld + 4 * t);
+#pragma unroll
+    for (int j = 0; j < kLoadBatch; ++j) {
+      if (m0 + j < m_n) {
+        const float wr = s_w[m0 + j], wi = s_w[kMaxAntennas + m0 + j];
+        lo.add(v[j].x, v[j].y, wr, wi);
+        hi.add(v[j].z, v[j].w, wr, wi);
+      }
+    }
+  }
+  const float2 a = lo.out(), c = hi.out();
+  reinterpret_cast<float4*>(y)[t] = make_float4(a.x, a.y, c.x, c.y);
+}
+
+template <bool kPairs>
+void launch_beamform(const float* x_re, const float* x_im, long long es,
+                     long long ld, int m_ant, long long n, const float* w_re,
+                     const float* w_im, float2* y, cudaStream_t s) {
+  const long long items = kPairs ? (n + 1) / 2 : n;
+  const auto blocks =
+      static_cast<unsigned int>((items + kThreads - 1) / kThreads);
+  beamform_kernel<kPairs><<<blocks, kThreads, 0, s>>>(
+      x_re, x_im, es, ld, m_ant, n, w_re, w_im, y);
 }
 
 // blocks for a grid-stride elementwise pass over n items
@@ -423,14 +500,24 @@ int resample(const float* x, long long n_in, double ratio, int mode,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K7e. x planar float32 [m_ant, n] (re plane, im plane), w [2, m_ant].
-int beamform(const float* x_re, const float* x_im, int m_ant, long long n,
-             const float* w, float* y_re, float* y_im, void* stream) {
-  if (m_ant < 1 || m_ant > kMaxAntennas || n < 1)
+// K7e. The M antenna rows as float pointers x_re, x_im with element
+// stride es and row stride ld (floats): contiguous planes (es = 1) or
+// the two halves of interleaved complex64 rows (x_im = x_re + 1, es = 2);
+// the weights w_re, w_im [M]; y complex64 [n].
+int beamform(const float* x_re, const float* x_im, long long es,
+             long long ld, int m_ant, long long n, const float* w_re,
+             const float* w_im, float* y, void* stream) {
+  if (m_ant < 1 || m_ant > kMaxAntennas || n < 1 || es < 1 || ld < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  beamform_kernel<<<stride_blocks(n), kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(x_re, x_im, m_ant, n,
-                                                         w, y_re, y_im);
+  const bool pairs = x_im == x_re + 1 && es == 2 && ld % 4 == 0 &&
+      ((reinterpret_cast<uintptr_t>(x_re) | reinterpret_cast<uintptr_t>(y)) &
+       15) == 0;
+  auto s = static_cast<cudaStream_t>(stream);
+  auto* yv = reinterpret_cast<float2*>(y);
+  if (pairs)
+    launch_beamform<true>(x_re, x_im, es, ld, m_ant, n, w_re, w_im, yv, s);
+  else
+    launch_beamform<false>(x_re, x_im, es, ld, m_ant, n, w_re, w_im, yv, s);
   return static_cast<int>(cudaGetLastError());
 }
 

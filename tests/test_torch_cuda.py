@@ -109,7 +109,7 @@ def _acq_case(dev, use_cfar):
     wk, wp = acq.acq_wipeoff(x, dop, c0), acq.acq_wipeoff_plain(x, dop, c0)
     torch.testing.assert_close(wk, wp, rtol=1e-5, atol=1e-5)
     pk, pp = acq.acq_product(wp, code), acq.acq_product_plain(wp, code)
-    torch.testing.assert_close(pk, pp, rtol=1e-5, atol=1e-4)
+    assert torch.equal(pk, pp)
     grid_k = grid_p = None
     for _ in range(2):
         grid_k, rmk, rak = acq.acq_accum(pp, grid_k, 0, n)
@@ -122,13 +122,37 @@ def _acq_case(dev, use_cfar):
     torch.testing.assert_close(sk[0], sp[0], rtol=1e-4, atol=0)
 
 
+def _acq_product_case(dev, p, d, n, offset):
+    """K2b on [P, D, N] against its plain version, to the bit; ``offset``
+    samples into its storage the spectrum's base is not 16-byte
+    aligned (the single-sample path, as for an odd N)."""
+    from gnss_sdr_tpu_torch.kernels import acq
+
+    rng = np.random.default_rng(p * d + n)
+
+    def cx(size):
+        return torch.as_tensor((rng.standard_normal(size)
+                                + 1j * rng.standard_normal(size))
+                               .astype(np.complex64), device=dev)
+
+    spec = cx(d * n + offset)[offset:].view(d, n)
+    code = cx(p * n).view(p, n)
+    assert torch.equal(acq.acq_product(spec, code),
+                       acq.acq_product_plain(spec, code))
+
+
 def test_acq_kernels_match_plain(dev):
     """K2's four kernels against their plain versions, with the CFAR
-    statistic and with the second-peak ratio
+    statistic and with the second-peak ratio; K2b alone to the bit at an
+    odd N, at a P x D x N that is no multiple of a block's work, from a
+    misaligned spectrum and at the E5a search's 36 x 32 x 12000
     (the cases run in one test: the tier-1 run's count of collected
     tests sets xdist's schedule of the memory-heavy JAX tests)."""
     for use_cfar in (True, False):
         _acq_case(dev, use_cfar)
+    for p, d, n, offset in ((3, 5, 4001, 0), (5, 7, 778, 0), (4, 3, 1030, 1),
+                            (36, 32, 12000, 0)):
+        _acq_product_case(dev, p, d, n, offset)
 
 
 def test_kernel_wrappers_count_launches(dev):
@@ -334,8 +358,7 @@ def test_acq_kernels_at_e1_shapes(dev):
                                acq.acq_wipeoff_plain(x, dop, c0),
                                rtol=1e-5, atol=1e-5)
     prod = acq.acq_product_plain(spec, eng._code_fft)
-    torch.testing.assert_close(acq.acq_product(spec, eng._code_fft), prod,
-                               rtol=1e-5, atol=1e-3)
+    assert torch.equal(acq.acq_product(spec, eng._code_fft), prod)
     corr = torch.fft.ifft(prod, dim=-1)
     gk, rmk, rak = acq.acq_accum(corr, None, 0, n)
     gp, rmp, rap = acq.acq_accum_plain(corr, None, 0, n)
@@ -858,10 +881,38 @@ def _hd_case(dev, length, table_len, accel_x10g):
         k3.multicorr(*args, carr_rate, None)
 
 
+def _beamform_case(dev, m, n, pad, offset):
+    """K7e on the interleaved complex64 capture x [M, N], a view ``offset``
+    samples into rows of N + ``pad`` (``offset`` 1: a base that is not
+    16-byte aligned; an odd row length: rows that are not), against its
+    plain version (within 1e-5 of the output rms) and against itself on
+    the two contiguous planes of x (to the bit)."""
+    from gnss_sdr_tpu_torch.kernels import conditioner as k7
+
+    rng = np.random.default_rng(m * n + pad)
+    big = (rng.standard_normal((m, n + pad))
+           + 1j * rng.standard_normal((m, n + pad))).astype(np.complex64)
+    x = torch.as_tensor(big, device=dev)[:, offset:offset + n]
+    w_re, w_im = (torch.as_tensor(rng.standard_normal(m).astype(np.float32),
+                                  device=dev) for _ in range(2))
+    got = k7.beamform_complex(x, w_re, w_im)
+    assert got.dtype == torch.complex64 and got.shape == (n,)
+    planes = [a.contiguous() for a in torch.view_as_real(x).unbind(-1)]
+    assert torch.equal(torch.complex(*k7.beamform(*planes, w_re, w_im)), got)
+    views = torch.view_as_real(x).unbind(-1)
+    assert torch.equal(torch.complex(*k7.beamform(*views, w_re, w_im)), got)
+    _rms_close(got, torch.complex(*k7.beamform_plain(*planes, w_re, w_im)),
+               1e-5)
+
+
 def test_beamform_kernel_matches_plain(dev):
     """K7e against JAX's einsums on the card (M = 8, N = 100 000): within
-    1e-5 of the output rms; one launch per filter call; the filter's gain
-    in its look direction and its null on the jammer."""
+    1e-5 of the output rms, from contiguous planes and from the planes of
+    one interleaved capture alike (to the bit), at an N that is no
+    multiple of 4, from a base that is not 16-byte aligned and at other
+    M (3 to 32, past one batch of eight rows' loads); one launch per
+    filter call, which returns one complex64 array; the filter's gain in
+    its look direction and its null on the jammer."""
     from gnss_sdr_tpu_torch.conditioner.beamformer import (BeamformerFilter,
                                                            array_response)
     from gnss_sdr_tpu_torch.kernels import LAUNCHES, reset_launches
@@ -879,9 +930,15 @@ def test_beamform_kernel_matches_plain(dev):
     got = k7.beamform(x_re, x_im, bf._w_re, bf._w_im)
     want = k7.beamform_plain(x_re, x_im, bf._w_re, bf._w_im)
     _rms_close(torch.complex(*got), torch.complex(*want), 1e-5)
+    for case in ((8, 100_000, 0, 0), (8, 100_001, 1, 0), (8, 100_003, 0, 0),
+                 (8, 99_998, 2, 1), (5, 100_001, 1, 0), (3, 7, 0, 0),
+                 (11, 100_000, 0, 0), (32, 4_002, 2, 0)):
+        _beamform_case(dev, *case)
     reset_launches()
     y = bf.apply(x)
     assert {k: v for k, v in LAUNCHES.items() if v} == {"beamform": 1}
+    assert isinstance(y, np.ndarray) and y.dtype == np.complex64 \
+        and y.shape == (n,)
     corr = np.vdot(sig, y) / np.vdot(sig, sig)
     assert abs(abs(corr) - 1.0) < 0.05
     jam_single = x[0] - array_response(m, 0.5, 10.0)[0] * sig

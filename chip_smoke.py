@@ -82,7 +82,12 @@ and cache the scenes the slices then load):
    its second E1 phase-B superblock (K = 25, data tap, CS25). The first
    period's (group's) correlations must be equal to the bit, every
    record and the end state within the JAX suite's tolerances; both
-   paths are timed with CUDA events. K1-loop's segmented-sum body
+   paths are timed with CUDA events. Each line carries its launch's
+   thread-block cluster (``cluster_size`` blocks a channel and
+   ``max_active_clusters``, cudaOccupancyMaxActiveClusters on this card)
+   and ``serial_floor_us``: the channel's serial steps (periods, or
+   groups x their rounds of periods) times the stand-alone K3's or K1's
+   device time at the same shape. K1-loop's segmented-sum body
    (K1-seg) likewise, from the segsum run's second superblock and from
    the E1 band's second phase-B superblock rebuilt on a segsum engine,
    its first group within FIRST_SEG_TOL of the group prompt.
@@ -329,12 +334,12 @@ def k2b_host_split(torch, spec, code_fft) -> dict:
     fn = kb.function("acq", "acq_product", [kb.VP, kb.VP, kb.I32, kb.I32,
                                             kb.I32, kb.VP, kb.VP])
     args = (spec.data_ptr(), code_fft.data_ptr(), n, d, p, out.data_ptr(),
-            kb.stream_ptr())
+            kb.stream_ptr(spec.device))
     r = host_us(torch, {
         "call": lambda: acq.acq_product(spec, code_fft),
         "contiguous": lambda: (spec.contiguous(), code_fft.contiguous()),
         "empty": lambda: spec.new_empty((p, d, n)),
-        "stream": kb.stream_ptr,
+        "stream": lambda: kb.stream_ptr(spec.device),
         "launch": lambda: fn(*args),
         "library": lambda: spec[None] * code_fft[:, None]})
     torch.cuda.synchronize()
@@ -428,7 +433,9 @@ def check_k3(torch, np, rng):
                 plain_ms=time_ms(torch, lambda: k3.multicorr_plain(*args)),
                 bound_ms=b, bound_by=by, library_ms=None,
                 variant="GPS L1 C/A",
-                shape=f"C={c} T={t} L={eng.max_period} int8 ring")
+                shape=f"C={c} T={t} L={eng.max_period} int8 ring",
+                **k3.cluster(t, codes.shape[1], eng.max_period, ring.dtype,
+                             dev))
 
 
 def check_k3_long(torch, np, rng):
@@ -681,7 +688,10 @@ def report(res):
               + (f", wrapper host {r['host_us']['call']:.2f} us"
                  if "host_us" in r else "")
               + (f", library {r['library_device_us']:.2f} us on the device"
-                 if r.get("library_device_us") is not None else ""),
+                 if r.get("library_device_us") is not None else "")
+              + (f", clusters of {r['cluster_size']} blocks, "
+                 f"{r['max_active_clusters']} at once"
+                 if "cluster_size" in r else ""),
               file=sys.stderr, flush=True)
         if not r["rel_err"] <= r["tol"]:
             fail(f"{r['name']} ({r['variant']}) disagrees with its plain "
@@ -1559,7 +1569,9 @@ def check_k3_e1(torch, np, rng):
                                        "multicorr_kernel"),
             plain_ms=time_ms(torch, lambda: k3.multicorr_plain(*args), 10),
             bound_ms=b, bound_by=by, library_ms=None, variant=variant,
-            shape=f"C={c} T={t} L={eng.max_period} table={codes.shape[1]}"))
+            shape=f"C={c} T={t} L={eng.max_period} table={codes.shape[1]}",
+            **k3.cluster(t, codes.shape[1], eng.max_period, ring.dtype,
+                         dev)))
     return out
 
 
@@ -1824,7 +1836,7 @@ def state_maxima(torch, sa, sb):
 
 
 def fused_case(torch, name, variant, fused, plain, cols, first, bound_of,
-               launches, shape, first_ref=None):
+               launches, shape, cluster, floor, first_ref=None):
     """One fused kernel call (``fused``: (state, packed)) against its plain
     version (``plain``) from the same state: the kernel's launch count in
     that call, the first period's or group's correlations (``first``
@@ -1837,7 +1849,11 @@ def fused_case(torch, name, variant, fused, plain, cols, first, bound_of,
     events): ``ms`` per call over back-to-back calls, ``event_us`` of one
     call between synchronizations, ``plain_ms`` of one plain call;
     ``device_us`` from the profiler (None when it records no device
-    time). Returns the kernel line."""
+    time). ``cluster``: the launch's cluster size and
+    cudaOccupancyMaxActiveClusters; ``floor``: (serial steps of a
+    channel, device us of one step on one cluster, from the stand-alone
+    kernel at the same shape) or None; their product is the line's
+    ``serial_floor_us``. Returns the kernel line."""
     from gnss_sdr_tpu_torch.kernels import LAUNCHES, reset_launches
 
     torch.cuda.synchronize()
@@ -1892,12 +1908,19 @@ def fused_case(torch, name, variant, fused, plain, cols, first, bound_of,
         device_us=kernel_device_us(torch, fused, symbol),
         event_us=event_us(torch, fused, 3),
         plain_ms=event_us(torch, plain, 1) / 1e3, bound_ms=b, bound_by=by,
-        library_ms=None, variant=variant, shape=shape)
+        library_ms=None, variant=variant, shape=shape,
+        serial_floor_us=None if floor is None or floor[1] is None
+        else floor[0] * floor[1],
+        serial_steps=None if floor is None else floor[0], **cluster)
 
 
 def scan_case(torch, eng, state, src_re, src_im, base, stride, n, codes,
-              dcodes, fused, variant, launches):
-    """K3-loop on ``n`` blocks against TrackingEngine._blocks_stepwise."""
+              dcodes, fused, variant, launches, period_us):
+    """K3-loop on ``n`` blocks against TrackingEngine._blocks_stepwise;
+    ``period_us``: K3's device us for one period's window at this shape
+    (the serial chain's step)."""
+    from gnss_sdr_tpu_torch.kernels import scan_loop as k3l
+
     t = eng.cfg.n_taps
     c = eng.n_channels
 
@@ -1926,13 +1949,22 @@ def scan_case(torch, eng, state, src_re, src_im, base, stride, n, codes,
         lambda p: torch.cat([p[0, 0, :, 4:8], p[0, 0, :, 15:]], -1),
         bound_of, launches,
         f"C={c} T={t} blocks={n} steps={eng.n_steps} L={eng.max_period} "
-        f"{src_re.dtype}")
+        f"{src_re.dtype}",
+        k3l.cluster(eng, codes.shape[1], src_re.dtype, src_re.device),
+        (n * eng.n_steps, period_us))
 
 
-def fast_case(torch, fast, state, ring, base, n, bank, variant, launches):
+def fast_case(torch, fast, state, ring, base, n, bank, variant, launches,
+              period_us=None):
     """K1-loop on ``n`` ring blocks against
     FastTrackingEngine._blocks_stepwise: the bank body, or for a segsum
-    engine (``bank`` its raw tables) the segmented sum, K1-seg."""
+    engine (``bank`` its raw tables) the segmented sum, K1-seg;
+    ``period_us``: K1's device us at this shape (each window on a block
+    of its own, all at once: one period's time on one block), the serial
+    chain's step being a group's rounds of periods (None: not
+    measured)."""
+    from gnss_sdr_tpu_torch.kernels import fast_loop as k1l
+
     k, c, g = fast.k, fast.n_channels, fast.g
     seg = fast.correlator == "segsum"
     nt = fast.n_taps + int(fast.track_pilot)
@@ -1975,17 +2007,19 @@ def fast_case(torch, fast, state, ring, base, n, bank, variant, launches):
     shape = f"C={c} K={k} T={nt} G={g} blocks={n} " + (
         f"lg={fast.lg} table={fast.table_len}" if seg
         else f"n_eff={fast.n_eff}") + " int8 ring"
+    cluster = k1l.cluster(fast, ring.dtype, ring.device)
+    rounds = -(-k // cluster["cluster_size"])
     return fused_case(
         torch, "fast_loop_seg" if seg else "fast_loop", variant, run, plain,
         (5 * k + 2, jj, [k + j for j in jj], 5 * k, 5 * k + 1,
          ([3 * k + j for j in jj], [4 * k + j for j in jj])),
         (lambda p: p[0, 0, :, 3 * k:5 * k]) if seg
         else (lambda p: p[0, 0, :, 2 * k:5 * k]), bound_of, launches, shape,
-        first_ref if seg else None)
+        cluster, (n * g * rounds, period_us), first_ref if seg else None)
 
 
 def fused_loop_phase(torch, np, slice_mid, slice_launches, mb_mid, mb_band,
-                     seg, card):
+                     seg, card, unit_us):
     """K3-loop and K1-loop against their plain versions at the main
     path's shapes, each from a state the receivers reached mid-run: the
     L1 slice's last phase-A superblock (10 ring blocks) and its second
@@ -1996,8 +2030,10 @@ def fused_loop_phase(torch, np, slice_mid, slice_launches, mb_mid, mb_band,
     segmented-sum body (K1-seg): the segsum run's second superblock
     (``seg``: that call and the run's launches, from
     ``loop_variants_phase``) and the E1 band's second phase-B superblock
-    again, on a segsum engine from the same state. Returns the kernel
-    lines."""
+    again, on a segsum engine from the same state. ``unit_us``: the
+    stand-alone K3's and K1's device us at the L1 and E1 shapes (keys
+    ("scan_loop" | "fast_loop", "L1" | "E1")), the steps of the serial
+    floors. Returns the kernel lines."""
     from gnss_sdr_tpu_torch.tracking.fast_engine import FastTrackingEngine
 
     out = []
@@ -2006,11 +2042,13 @@ def fused_loop_phase(torch, np, slice_mid, slice_launches, mb_mid, mb_band,
         torch, eng, state, ring[0], ring[1], base, eng.block_samples, n,
         codes, dcodes, lambda: eng.superblock_ring_i8(
             state, ring, base, n, codes, dcodes),
-        "GPS L1 C/A, phase A", slice_launches["scan_loop"]))
+        "GPS L1 C/A, phase A", slice_launches["scan_loop"],
+        unit_us["scan_loop", "L1"]))
     fast, (state, ring, base, n, bank) = slice_mid["fast"]
     out.append(fast_case(torch, fast, state, ring, base, n, bank,
                          "GPS L1 C/A, phase B (fllpll)",
-                         slice_launches["fast_loop"]))
+                         slice_launches["fast_loop"],
+                         unit_us["fast_loop", "L1"]))
     calls = mb_mid["scan"]
     eng = calls[0][0]
     state, codes, dcodes = calls[0][1][0], calls[0][1][3], calls[0][1][4]
@@ -2020,11 +2058,12 @@ def fused_loop_phase(torch, np, slice_mid, slice_launches, mb_mid, mb_band,
         torch, eng, state, re.reshape(-1), im.reshape(-1), 0, re.shape[1],
         len(calls), codes, dcodes, lambda: eng.superblock_step(
             state, re, im, codes, dcodes),
-        "Galileo E1 pilot + data prompt, phase A", mb_band["scan_loop"]))
+        "Galileo E1 pilot + data prompt, phase A", mb_band["scan_loop"],
+        unit_us["scan_loop", "E1"]))
     fast, (state, ring, base, n, bank) = mb_mid["fast"]
     out.append(fast_case(torch, fast, state, ring, base, n, bank,
                          "Galileo E1 pilot K=25 + data tap, phase B",
-                         mb_band["fast_loop"]))
+                         mb_band["fast_loop"], unit_us["fast_loop", "E1"]))
     (seg_fast, (state, ring, base, n, tables)), seg_launches = seg
     out.append(fast_case(torch, seg_fast, state, ring, base, n, tables,
                          "GPS L1 C/A, segsum run's second superblock",
@@ -3460,8 +3499,14 @@ def main() -> int:
     mb_res, mb_launches, mb_mid = multiband_phase(torch, np,
                                                   kbuild.BUILD_DIR, card)
     e1 = mb_res["launches_by_band"]["1B"]
+    # the serial floors' steps: the stand-alone K3 (one period's window
+    # on one cluster) and K1 (one window a block) at the fused shapes
+    unit_us = {("fast_loop", "L1"): res[0]["device_us"],
+               ("scan_loop", "L1"): res[1]["device_us"],
+               ("fast_loop", "E1"): e1_res[0]["device_us"],
+               ("scan_loop", "E1"): e1_res[2]["device_us"]}
     fused_res = fused_loop_phase(torch, np, slice_mid, launches, mb_mid, e1,
-                                 seg, card)
+                                 seg, card, unit_us)
     par_res, par_rec = parallel_phase(torch, np, slice_mid, mb_mid, card)
     # each kernel line's launches: the run of the path whose shapes it
     # was checked at (the L1 slice; the multi-band slice, where the fused

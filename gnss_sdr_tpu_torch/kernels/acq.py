@@ -126,10 +126,10 @@ def acq_wipeoff(x, dopplers, c0: float):
     dopplers = dopplers.contiguous()
     n, d = x.shape[0], dopplers.shape[0]
     out = torch.empty((d, n), dtype=torch.complex64, device=x.device)
-    err = _fn("acq_wipeoff", [kb.VP, kb.VP, kb.F32, kb.I32, kb.I32, kb.VP,
-                              kb.VP])(
-        x.data_ptr(), dopplers.data_ptr(), c0, n, d, out.data_ptr(),
-        kb.stream_ptr())
+    fn = _fn("acq_wipeoff", [kb.VP, kb.VP, kb.F32, kb.I32, kb.I32, kb.VP,
+                           kb.VP])
+    err = kb.launch(fn, x.device, x.data_ptr(), dopplers.data_ptr(), c0, n, d,
+                    out.data_ptr())
     kb.check(err, "acq_wipeoff")
     LAUNCHES["acq_wipeoff"] += 1
     return out
@@ -153,10 +153,10 @@ def acq_product(spec, code_fft):
     d, n = spec.shape
     p = code_fft.shape[0]
     out = spec.new_empty((p, d, n))
-    err = _fn("acq_product", [kb.VP, kb.VP, kb.I32, kb.I32, kb.I32, kb.VP,
-                              kb.VP])(
-        spec.data_ptr(), code_fft.data_ptr(), n, d, p, out.data_ptr(),
-        kb.stream_ptr())
+    fn = _fn("acq_product", [kb.VP, kb.VP, kb.I32, kb.I32, kb.I32, kb.VP,
+                           kb.VP])
+    err = kb.launch(fn, spec.device, spec.data_ptr(), code_fft.data_ptr(), n,
+                    d, p, out.data_ptr())
     kb.check(err, "acq_product")
     LAUNCHES["acq_product"] += 1
     return out
@@ -181,11 +181,11 @@ def acq_accum(corr, grid, offset: int, eff: int):
         raise ValueError("acq_accum: grid must be contiguous [P, D, eff]")
     row_max = torch.empty((p, d), dtype=torch.float32, device=corr.device)
     row_arg = torch.empty((p, d), dtype=torch.int32, device=corr.device)
-    err = _fn("acq_accum", [kb.VP, kb.I32, kb.I32, kb.I32, kb.I32, kb.I32,
-                            kb.VP, kb.VP, kb.VP, kb.VP])(
-        corr.data_ptr(), p * d, n, int(offset), int(eff), int(first),
-        grid.data_ptr(), row_max.data_ptr(), row_arg.data_ptr(),
-        kb.stream_ptr())
+    fn = _fn("acq_accum", [kb.VP, kb.I32, kb.I32, kb.I32, kb.I32, kb.I32,
+                         kb.VP, kb.VP, kb.VP, kb.VP])
+    err = kb.launch(fn, corr.device, corr.data_ptr(), p * d, n, int(offset),
+                    int(eff), int(first), grid.data_ptr(), row_max.data_ptr(),
+                    row_arg.data_ptr())
     kb.check(err, "acq_accum")
     LAUNCHES["acq_accum"] += 1
     return grid, row_max, row_arg
@@ -202,13 +202,15 @@ def acq_stats(grid, row_max, row_arg, num_dwells: int,
     stat = torch.empty((p,), dtype=torch.float32, device=grid.device)
     i_dop = torch.empty((p,), dtype=torch.int32, device=grid.device)
     i_time = torch.empty((p,), dtype=torch.int32, device=grid.device)
-    err = _fn("acq_stats", [kb.VP, kb.VP, kb.VP, kb.I32, kb.I32, kb.I32,
-                            kb.F32, kb.I32, kb.I32, kb.VP, kb.VP, kb.VP,
-                            kb.VP])(
-        grid.data_ptr(), row_max.contiguous().data_ptr(),
-        row_arg.contiguous().data_ptr(), p, d, eff, float(num_dwells),
-        int(samples_per_chip), int(bool(use_cfar)), stat.data_ptr(),
-        i_dop.data_ptr(), i_time.data_ptr(), kb.stream_ptr())
+    fn = _fn("acq_stats", [kb.VP, kb.VP, kb.VP, kb.I32, kb.I32, kb.I32,
+                         kb.F32, kb.I32, kb.I32, kb.VP, kb.VP, kb.VP,
+                         kb.VP])
+    err = kb.launch(fn, grid.device, grid.data_ptr(),
+                    row_max.contiguous().data_ptr(),
+                    row_arg.contiguous().data_ptr(), p, d, eff,
+                    float(num_dwells), int(samples_per_chip),
+                    int(bool(use_cfar)), stat.data_ptr(), i_dop.data_ptr(),
+                    i_time.data_ptr())
     kb.check(err, "acq_stats")
     LAUNCHES["acq_stats"] += 1
     return stat, i_dop, i_time

@@ -72,10 +72,10 @@ def fold_wipeoff(x, dopplers, c0: float, s: int):
     x, dopplers = x.contiguous(), dopplers.contiguous()
     nf, d = x.shape[0] // s, dopplers.shape[0]
     out = torch.empty((d, nf), dtype=torch.complex64, device=x.device)
-    err = kb.function("acq_variants", "fold_wipeoff", [
-        kb.VP, kb.VP, kb.F32, kb.I32, kb.I32, kb.I32, kb.VP, kb.VP])(
-        x.data_ptr(), dopplers.data_ptr(), c0, int(s), nf, d,
-        out.data_ptr(), kb.stream_ptr())
+    fn = kb.function("acq_variants", "fold_wipeoff", [
+        kb.VP, kb.VP, kb.F32, kb.I32, kb.I32, kb.I32, kb.VP, kb.VP])
+    err = kb.launch(fn, x.device, x.data_ptr(), dopplers.data_ptr(), c0,
+                    int(s), nf, d, out.data_ptr())
     kb.check(err, "fold_wipeoff")
     LAUNCHES["fold_wipeoff"] += 1
     return out
@@ -96,10 +96,10 @@ def cccwsr_combine(yb, yc):
     grid = torch.empty((p, d, n), dtype=torch.float32, device=yb.device)
     row_max = torch.empty((p, d), dtype=torch.float32, device=yb.device)
     row_arg = torch.empty((p, d), dtype=torch.int32, device=yb.device)
-    err = kb.function("acq_variants", "cccwsr_combine", [
-        kb.VP, kb.VP, kb.I32, kb.I32, kb.VP, kb.VP, kb.VP, kb.VP])(
-        yb.data_ptr(), yc.data_ptr(), p * d, n, grid.data_ptr(),
-        row_max.data_ptr(), row_arg.data_ptr(), kb.stream_ptr())
+    fn = kb.function("acq_variants", "cccwsr_combine", [
+        kb.VP, kb.VP, kb.I32, kb.I32, kb.VP, kb.VP, kb.VP, kb.VP])
+    err = kb.launch(fn, yb.device, yb.data_ptr(), yc.data_ptr(), p * d, n,
+                    grid.data_ptr(), row_max.data_ptr(), row_arg.data_ptr())
     kb.check(err, "cccwsr_combine")
     LAUNCHES["cccwsr_combine"] += 1
     return grid, row_max, row_arg

@@ -95,11 +95,11 @@ def bank_corr(src_re, src_im, base: int, win_start, ph0, step, bank, j0, w,
     f = kb.function("bank_corr", fn, _ARGTYPES)
     out_re = torch.empty((c, k, t), dtype=torch.float32, device=src_re.device)
     out_im = torch.empty_like(out_re)
-    err = f(src_re.data_ptr(), src_im.data_ptr(), int(base),
-            win_start.data_ptr(), ph0.data_ptr(), step.data_ptr(),
-            bank.data_ptr(), j0.data_ptr(), w.data_ptr(), c, k, p1, t, width,
-            int(n_eff), out_re.data_ptr(), out_im.data_ptr(),
-            kb.stream_ptr())
+    err = kb.launch(f, src_re.device, src_re.data_ptr(), src_im.data_ptr(),
+                    int(base), win_start.data_ptr(), ph0.data_ptr(),
+                    step.data_ptr(), bank.data_ptr(), j0.data_ptr(),
+                    w.data_ptr(), c, k, p1, t, width, int(n_eff),
+                    out_re.data_ptr(), out_im.data_ptr())
     kb.check(err, fn)
     LAUNCHES["bank_corr"] += 1
     return out_re, out_im

@@ -173,14 +173,52 @@ def pointer_struct(names: tuple[str, ...]) -> type:
     return cls
 
 
-def stream_ptr() -> int:
-    """The current CUDA stream of the current device as a ``cudaStream_t``
-    (a Python int): what ``torch.cuda.current_stream().cuda_stream`` gives,
+def stream_ptr(device) -> int:
+    """The current CUDA stream of card ``device`` (a ``torch.device`` of
+    type cuda; no index: the current card) as a ``cudaStream_t`` (a Python
+    int): what ``torch.cuda.current_stream(device).cuda_stream`` gives,
     read from PyTorch's C API without building a ``Stream`` object on
     every launch."""
     import torch
 
-    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
+    idx = device.index
+    if idx is None:
+        idx = torch._C._cuda_getDevice()
+    return torch._C._cuda_getCurrentRawStream(idx)
+
+
+def launch(fn, device, *args) -> int:
+    """``fn(*args, stream)``: a launcher of ``csrc/`` called on card
+    ``device`` (the device of the launch's first tensor) with that card's
+    current stream last; returns its ``cudaError_t``. The launchers start
+    their kernels on the calling thread's current card, so a tensor on
+    another card is launched under a device guard, entered only then:
+    the common call, on the current card, stays a raw stream read."""
+    import torch
+
+    cur = torch._C._cuda_getDevice()
+    idx = cur if device.index is None else device.index
+    if idx == cur:
+        return fn(*args, torch._C._cuda_getCurrentRawStream(cur))
+    with torch.cuda.device(idx):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+
+
+def cluster_query(lib: str, name: str, device, *ints) -> dict:
+    """The thread-block cluster of a launcher of ``csrc/<lib>.cu`` on card
+    ``device``: its query ``name(*ints, &S, &n)`` gives the cluster size S
+    (blocks a channel) the launch takes and cudaOccupancyMaxActiveClusters
+    (how many such clusters the card holds at once); raises on an
+    error."""
+    import torch
+
+    s, n = ctypes.c_int(), ctypes.c_int()
+    f = function(lib, name, [I32] * len(ints)
+                 + [ctypes.POINTER(I32), ctypes.POINTER(I32)])
+    with torch.cuda.device(device):
+        check(f(*(int(v) for v in ints), ctypes.byref(s), ctypes.byref(n)),
+              name)
+    return {"cluster_size": s.value, "max_active_clusters": n.value}
 
 
 VP = ctypes.c_void_p

@@ -140,7 +140,7 @@ def _launch(fn, args, dev: torch.device, reads, what: str) -> None:
         stream = torch.cuda.current_stream(dev)
         for o in others:
             stream.wait_stream(torch.cuda.current_stream(o))
-        err = fn(ctypes.byref(args), kb.stream_ptr())
+        err = kb.launch(fn, dev, ctypes.byref(args))
         kb.check(err, what)
         for o in others:
             torch.cuda.current_stream(o).wait_stream(stream)

@@ -181,11 +181,11 @@ def fir_decim(x, taps, decimation: int, nco_step: float = 0.0, n0: int = 0):
         raise ValueError("fir_decim: 1-D taps and decimation >= 1 expected")
     n_out = fir_output_len(x.shape[0], decimation)
     y = torch.empty(n_out, dtype=torch.complex64, device=x.device)
-    err = _fn("fir_decim", [kb.VP, kb.I64, kb.VP, kb.I32, kb.I32, kb.I32,
-                            kb.F64, kb.I64, kb.VP, kb.I64, kb.VP])(
-        x.data_ptr(), x.shape[0], taps.data_ptr(), taps.shape[0],
-        int(decimation), int(nco_step != 0.0), float(nco_step), int(n0),
-        y.data_ptr(), n_out, kb.stream_ptr())
+    fn = _fn("fir_decim", [kb.VP, kb.I64, kb.VP, kb.I32, kb.I32, kb.I32,
+                         kb.F64, kb.I64, kb.VP, kb.I64, kb.VP])
+    err = kb.launch(fn, x.device, x.data_ptr(), x.shape[0], taps.data_ptr(),
+                    taps.shape[0], int(decimation), int(nco_step != 0.0),
+                    float(nco_step), int(n0), y.data_ptr(), n_out)
     kb.check(err, "fir_decim")
     LAUNCHES["fir_decim"] += 1
     return y
@@ -207,11 +207,11 @@ def pulse_blank(x, threshold_sigma: float):
     partials = torch.empty(parts, dtype=torch.float64, device=x.device)
     thr = torch.empty(1, dtype=torch.float32, device=x.device)
     y = torch.empty_like(x)
-    err = _fn("pulse_blank", [kb.VP, kb.I64, kb.F32, kb.VP, kb.I32, kb.VP,
-                              kb.VP, kb.VP])(
-        x.data_ptr(), n, float(np.float32(threshold_sigma * threshold_sigma)),
-        partials.data_ptr(), parts, thr.data_ptr(), y.data_ptr(),
-        kb.stream_ptr())
+    fn = _fn("pulse_blank", [kb.VP, kb.I64, kb.F32, kb.VP, kb.I32, kb.VP,
+                           kb.VP, kb.VP])
+    err = kb.launch(fn, x.device, x.data_ptr(), n,
+                    float(np.float32(threshold_sigma * threshold_sigma)),
+                    partials.data_ptr(), parts, thr.data_ptr(), y.data_ptr())
     kb.check(err, "pulse_blank")
     LAUNCHES["pulse_blank"] += 1
     return y
@@ -230,11 +230,11 @@ def notch_mask(spec, excision_factor: float):
     sel = torch.empty(4 + 512, dtype=torch.int32, device=spec.device)
     thr = torch.empty(1, dtype=torch.float32, device=spec.device)
     out = torch.empty_like(spec)
-    err = _fn("notch_mask", [kb.VP, kb.I64, kb.F32, kb.VP, kb.VP, kb.VP,
-                             kb.VP, kb.U32, kb.U32, kb.VP])(
-        spec.data_ptr(), n, float(np.float32(excision_factor)),
-        mag.data_ptr(), sel.data_ptr(), thr.data_ptr(), out.data_ptr(), lo,
-        hi, kb.stream_ptr())
+    fn = _fn("notch_mask", [kb.VP, kb.I64, kb.F32, kb.VP, kb.VP, kb.VP,
+                          kb.VP, kb.U32, kb.U32, kb.VP])
+    err = kb.launch(fn, spec.device, spec.data_ptr(), n,
+                    float(np.float32(excision_factor)), mag.data_ptr(),
+                    sel.data_ptr(), thr.data_ptr(), out.data_ptr(), lo, hi)
     kb.check(err, "notch_mask")
     LAUNCHES["notch_mask"] += 1
     return out
@@ -253,10 +253,10 @@ def resample(x, fs_in: float, fs_out: float, mode: int):
     if n_out < 1:
         return torch.empty(0, dtype=torch.complex64, device=x.device)
     y = torch.empty(n_out, dtype=torch.complex64, device=x.device)
-    err = _fn("resample", [kb.VP, kb.I64, kb.F64, kb.I32, kb.VP, kb.I64,
-                           kb.VP])(
-        x.data_ptr(), n_in, float(fs_in / fs_out), int(mode), y.data_ptr(),
-        n_out, kb.stream_ptr())
+    fn = _fn("resample", [kb.VP, kb.I64, kb.F64, kb.I32, kb.VP, kb.I64,
+                        kb.VP])
+    err = kb.launch(fn, x.device, x.data_ptr(), n_in, float(fs_in / fs_out),
+                    int(mode), y.data_ptr(), n_out)
     kb.check(err, "resample")
     LAUNCHES["resample"] += 1
     return y
@@ -282,10 +282,11 @@ def _beamform_launch(x_re, x_im, w_re, w_im):
     w_re, w_im = w_re.contiguous(), w_im.contiguous()
     n = x_re.shape[1]
     y = torch.empty(n, dtype=torch.complex64, device=x_re.device)
-    err = _fn("beamform", [kb.VP, kb.VP, kb.I64, kb.I64, kb.I32, kb.I64,
-                           kb.VP, kb.VP, kb.VP, kb.VP])(
-        x_re.data_ptr(), x_im.data_ptr(), x_re.stride(1), x_re.stride(0), m,
-        n, w_re.data_ptr(), w_im.data_ptr(), y.data_ptr(), kb.stream_ptr())
+    fn = _fn("beamform", [kb.VP, kb.VP, kb.I64, kb.I64, kb.I32, kb.I64,
+                        kb.VP, kb.VP, kb.VP, kb.VP])
+    err = kb.launch(fn, x_re.device, x_re.data_ptr(), x_im.data_ptr(),
+                    x_re.stride(1), x_re.stride(0), m, n, w_re.data_ptr(),
+                    w_im.data_ptr(), y.data_ptr())
     kb.check(err, "beamform")
     LAUNCHES["beamform"] += 1
     return y

@@ -8,10 +8,46 @@
 // Every product and sum is rounded explicitly (__fmul_rn, __fmaf_rn, ...),
 // so the compiler cannot contract them differently in the two contexts:
 // with the same thread layout (the thread of index tid of nthreads takes
-// the samples tid, tid + nthreads, ...) and the same block_sum, the fused
-// kernels' correlations equal K3's and K1's to the bit.
+// the samples tid, tid + nthreads, ...), the same block_sum and, for K3,
+// the same partition of the window into slices summed in slice order
+// (k3_slices, slice_total), the fused kernels' correlations equal K3's
+// and K1's to the bit.
 #pragma once
+#include "cluster.cuh"
 #include "common.cuh"
+
+// ---- K3's window partition (multicorr.cu's K3, scan_loop.cu's K3-loop)
+//
+// A window of at most max_period samples is cut into S contiguous slices
+// of ceil(max_period / S) samples, one block of a cluster each: S =
+// ceil(max_period / kSliceMin), at most kPortableCluster (a slice of at
+// least 512 samples keeps two strides of 256 threads busy, and a cluster
+// of 8 blocks that each hold E1's 196 KB table fits a GPC twice, so 8
+// channels' clusters run at once). The partition depends on max_period
+// alone, never on the card, so K3 and K3-loop cut every window alike.
+constexpr int kSliceMin = 512;
+
+__host__ __device__ inline int k3_slices(int max_period) {
+  const int s = (max_period + kSliceMin - 1) / kSliceMin;
+  return s < 1 ? 1 : (s > kPortableCluster ? kPortableCluster : s);
+}
+
+__host__ __device__ inline int k3_slice_len(int max_period, int S) {
+  return (max_period + S - 1) / S;
+}
+
+// The window's sums from its S slices' block sums (part[s NA + i]),
+// added in slice order: K3 and K3-loop both form them so.
+template <int NA>
+__device__ __forceinline__ void slice_total(const float* part, int S,
+                                            float (&tot)[NA]) {
+#pragma unroll
+  for (int i = 0; i < NA; ++i) tot[i] = part[i];
+  for (int s = 1; s < S; ++s) {
+#pragma unroll
+    for (int i = 0; i < NA; ++i) tot[i] = __fadd_rn(tot[i], part[s * NA + i]);
+  }
+}
 
 // first sample of chip c: ceil((c + rem - shift) / step), rounded as the
 // segmented-sum form rounds it
@@ -38,21 +74,23 @@ __device__ __forceinline__ bool chip_of(float cp, float fn, float rc,
   return true;
 }
 
-// K3's body: this thread's partial sums over the valid prefix n < len of
-// the window at s0. acc[t], acc[NT + t] are tap t's re, im (code table
+// K3's body: this thread's partial sums over the samples n_lo <= n < n_hi
+// of the window at s0 (a slice of its valid prefix; n counts from the
+// window's start). acc[t], acc[NT + t] are tap t's re, im (code table
 // ``code`` of ``code_len`` entries, tap shifts ``sh``). With ND = 1 the
 // data-component code ``dcode`` at zero shift rides on the same rotated
 // samples (one sincosf for both): acc[2 NT], acc[2 NT + 1].
 template <typename T, int NT, int ND>
 __device__ __forceinline__ void k3_accumulate(
     const T* __restrict__ src_re, const T* __restrict__ src_im, long long s0,
-    int len, const float* code, int code_len, const float (&sh)[NT],
+    int n_lo, int n_hi, const float* code, int code_len,
+    const float (&sh)[NT],
     int n_extra, const float* dcode, int dcode_len, int n_extra_d, float rc,
     float cs, float rp, float ps, float (&acc)[2 * (NT + ND)], int tid,
     int nthreads) {
 #pragma unroll
   for (int i = 0; i < 2 * (NT + ND); ++i) acc[i] = 0.0f;
-  for (int n = tid; n < len; n += nthreads) {
+  for (int n = n_lo + tid; n < n_hi; n += nthreads) {
     const float fn = static_cast<float>(n);
     float rr, ri;
     derotate(to_f32(src_re[s0 + n]), to_f32(src_im[s0 + n]),

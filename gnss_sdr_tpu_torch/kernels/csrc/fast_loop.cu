@@ -13,27 +13,32 @@
 // (tracking/fast_engine.py::FastTrackingEngine._blocks_stepwise: K1, K6
 // and PyTorch).
 //
-// Design: one block of 256 threads per channel walks n_blocks x G groups.
-// Per group its threads compute the K periods' boundaries, window starts,
-// carrier phases and bank rows (one period a thread); then all threads
-// correlate the K windows one after another with K1's own body
+// Design: one thread-block cluster of S blocks per channel walks
+// n_blocks x G groups. Per group the leader's threads compute the K
+// periods' boundaries, window starts, carrier phases and bank rows (one
+// period a thread); after a cluster barrier the periods, independent
+// once their NCO is fixed, are correlated by the cluster's blocks, period
+// j by block j mod S, each whole on one block with K1's own body
 // (corr_common.cuh: K1 runs one block per period with the same thread
 // layout, order and roundings, so the correlations equal K1's to the
-// bit); then thread 0 closes the
-// loops on the channel's carry in shared memory (the KF and Gaussian steps
-// through loops.cuh, K6's own device functions) and writes the group's
-// record. One block per channel rather than K1's one block per (channel,
-// period): a group's periods cannot start before the previous group's
-// closure, so a launch of C K blocks would need a grid-wide barrier twice
-// a group (a cooperative launch), while a channel's block walks its K
-// periods with no barrier but its own; at L1 (K = 20, 4001 samples) that
-// is ~80,000 samples a group on 256 threads, a few tens of us.
+// bit) and its interpolated sums written into the leader's shared memory
+// (distributed shared memory); after a second barrier thread 0 of the
+// leader closes the loops on the channel's carry (the KF and Gaussian
+// steps through loops.cuh, K6's own device functions) and writes the
+// group's record. A group's periods cannot start before the previous
+// group's closure; one block a channel would walk them one after
+// another (25 x ~41 us a group at E1, on 8 of 132 SMs at C = 8). S (fast_cluster) takes the fewest rounds of at
+// most 16 blocks: 10 blocks of two periods at L1 (K = 20), 13 at E1
+// (K = 25). The cluster's barriers stand in for the grid-wide barrier a
+// launch of C K blocks would need twice a group.
 //
 // Bound: a superblock must read each channel's windows once (2 bytes a
 // sample from the int8 ring), the bank rows it uses once and write its
 // records once: at L1 (8 channels, 10 blocks x 5 groups x 20 periods of
 // 4001 samples, 2 rows of 3 taps a period) ~17 MB, ~5 us at 3.35 TB/s;
-// the real floor is the serial chain of groups of each channel.
+// the real floor is the serial chain of groups of each channel: per
+// group one period's correlation on one block, two cluster barriers and
+// one thread's closure.
 //
 // K1-seg (fast_loop_seg_kernel, a segsum engine): the correlation body is
 // the segmented sum of gnss_sdr_tpu/tracking/fast_engine.py:746-828 (the
@@ -47,8 +52,11 @@
 // and sums them directly: at E1, 25 x 49104 bins a tap of which most hold
 // no sample, a walk over the samples reads each once. The plain version
 // differences float32 prefix sums, so the two agree to the rounding of
-// those sums, not to the bit. The pilot table stays in shared memory
-// (196 KB at E1, opted in above 48 KB), the data table is read from L2.
+// those sums, not to the bit. Its periods spread over the cluster as
+// K1's do, each summed whole by one block, so the cluster changes none
+// of its bits. The pilot table stays in shared memory of every block
+// (196 KB at E1, opted in above 48 KB; one block an SM, so clusters of
+// at most 8), the data table is read from L2.
 // Bound: the windows once (64 MB at L1 and at E1 a superblock, ~19 us).
 #include "corr_common.cuh"
 #include "loops.cuh"
@@ -113,8 +121,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kLoopKf = 1, kLoopGaussian = 2;
-// dynamic shared memory a launch gets without opting in
-constexpr size_t kDefaultSmem = 48 * 1024;
 
 struct FastCarry {
   int active, offset;
@@ -127,11 +133,14 @@ struct FastCarry {
   int sec_len, sec_phase, sec_locked;
 };
 
-// the inputs of the group's K periods (group_inputs), in shared memory
+// the inputs of the group's K periods (group_inputs), in shared memory;
+// the segmented sum's group window and NCO (segsum_corr) beside them
 struct GroupInputs {
   int start[kMaxK], win[kMaxK], j0[kMaxK];
   float rem[kMaxK], ph0[kMaxK], w[kMaxK];
   float step;
+  int seg_win;
+  float seg_code_step, seg_rem, seg_rem_carr;
 };
 
 __device__ void load_carry(const FastStatePtrs& in, int c,
@@ -227,7 +236,13 @@ __device__ void group_period(const FastConsts& k, const FastCarry& s, int kk,
   q.ph0[kk] = add(s.rem_carr, mul(step, static_cast<float>(win - s.offset)));
   q.j0[kk] = j0;
   q.w[kk] = sub(pf, static_cast<float>(j0));
-  if (kk == 0) q.step = step;
+  if (kk == 0) {
+    q.step = step;
+    q.seg_win = min(max(s.offset, 0), k.total - k.lg);
+    q.seg_code_step = add(k.code_step_nom, mul(s.code_dop, k.cspc_over_fs));
+    q.seg_rem = s.rem;
+    q.seg_rem_carr = s.rem_carr;
+  }
 }
 
 // FastTrackingEngine._close_loops for one channel: cre/cim [K][NP + ND]
@@ -425,9 +440,13 @@ __device__ void close_group(const FastConsts& k, FastCarry& s,
   row[5 * K + 3] = s.loss ? 1.0f : 0.0f;
 }
 
-// The whole program of one channel (block c): per group the prologue,
-// the correlation of the K periods (K1's bank body or, SEG, K1-seg's
-// segmented sum), the closure and the record.
+// The whole program of one channel (cluster c of S blocks): per group
+// the leader's prologue, the correlation of the K periods (K1's bank
+// body or, SEG, K1-seg's segmented sum), period j by block j mod S (each
+// period whole on one block, K1's own layout), each period's sums
+// written into the leader's shared memory, then the leader's closure and
+// record. Two cluster barriers a group: after the prologue, after the
+// periods' sums.
 template <typename T, int NP, int ND, bool SEG>
 __device__ __forceinline__ void fast_loop_body(
     const T* __restrict__ src_re, const T* __restrict__ src_im,
@@ -437,11 +456,15 @@ __device__ __forceinline__ void fast_loop_body(
   constexpr int NT = NP + ND;
   extern __shared__ float s_tab[];   // SEG: the channel's pilot code table
   __shared__ float scratch[4 * NT * 32];
-  __shared__ FastCarry st;
-  __shared__ GroupInputs q;
-  __shared__ float s_cre[kMaxK * NT], s_cim[kMaxK * NT];
-  const int c = blockIdx.x, C = gridDim.x;
-  if (threadIdx.x == 0) load_carry(in, c, k, st);
+  __shared__ FastCarry st;           // the leader's
+  __shared__ GroupInputs q;          // the leader's; the others' copies
+  __shared__ float s_cre[kMaxK * NT], s_cim[kMaxK * NT];   // the leader's
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = static_cast<int>(cluster.num_blocks());
+  const int r = static_cast<int>(cluster.block_rank());
+  const bool lead = r == 0;
+  const int c = blockIdx.x / S, C = gridDim.x / S;
+  if (lead && threadIdx.x == 0) load_carry(in, c, k, st);
   // K1: the channel's bank rows [P + 1][NT][W]; K1-seg: its tables
   // [1 + ND][table_len], the pilot's staged in shared memory
   const float* bank_c = SEG ? bank + (size_t)c * (1 + ND) * k.table_len
@@ -453,40 +476,52 @@ __device__ __forceinline__ void fast_loop_body(
 #pragma unroll
     for (int t = 0; t < NP; ++t) sh[t] = k.shifts[t];
   }
+  const GroupInputs* lead_q = cluster.map_shared_rank(&q, 0);
+  float* lead_cre = cluster.map_shared_rank(s_cre, 0);
+  float* lead_cim = cluster.map_shared_rank(s_cim, 0);
   __syncthreads();
   const int row_w = 5 * k.K + 4;
   for (int b = 0; b < k.n_blocks; ++b) {
     const long long bb = base + (long long)b * k.block_stride;
     for (int g = 0; g < k.n_groups; ++g) {
-      for (int j = threadIdx.x; j < k.K; j += blockDim.x)
-        group_period(k, st, j, q);
-      __syncthreads();
-      if constexpr (SEG) {
-        // the group window, its code rate and carrier, as segsum_corr
-        // forms them
-        const long long gw =
-            bb + min(max(st.offset, 0), k.total - k.lg);
-        const float cs = add(k.code_step_nom, mul(st.code_dop,
-                                                  k.cspc_over_fs));
-        for (int j = 0; j < k.K; ++j) {
+      if (lead) {
+        for (int j = threadIdx.x; j < k.K; j += blockDim.x)
+          group_period(k, st, j, q);
+      }
+      cluster.sync();   // the group's inputs published
+      if (!lead) {
+        for (int j = threadIdx.x; j < k.K; j += blockDim.x) {
+          q.win[j] = lead_q->win[j];
+          q.j0[j] = lead_q->j0[j];
+          q.ph0[j] = lead_q->ph0[j];
+          q.w[j] = lead_q->w[j];
+        }
+        if (threadIdx.x == 0) {
+          q.step = lead_q->step;
+          q.seg_win = lead_q->seg_win;
+          q.seg_code_step = lead_q->seg_code_step;
+          q.seg_rem = lead_q->seg_rem;
+          q.seg_rem_carr = lead_q->seg_rem_carr;
+        }
+        __syncthreads();
+      }
+      for (int j = r; j < k.K; j += S) {
+        if constexpr (SEG) {
           float acc[2 * NT];
-          seg_accumulate<T, NP, ND>(src_re, src_im, gw, k.lg, j, k.K,
-                                    k.table_len, s_tab,
-                                    bank_c + k.table_len, sh, st.rem, cs,
-                                    st.rem_carr, q.step, acc, threadIdx.x,
-                                    blockDim.x);
+          seg_accumulate<T, NP, ND>(src_re, src_im, bb + q.seg_win, k.lg, j,
+                                    k.K, k.table_len, s_tab,
+                                    bank_c + k.table_len, sh, q.seg_rem,
+                                    q.seg_code_step, q.seg_rem_carr, q.step,
+                                    acc, threadIdx.x, blockDim.x);
           block_sum<2 * NT>(acc, scratch);
           if (threadIdx.x == 0) {
 #pragma unroll
             for (int t = 0; t < NT; ++t) {
-              s_cre[j * NT + t] = acc[t < NP ? t : 2 * NP];
-              s_cim[j * NT + t] = acc[t < NP ? NP + t : 2 * NP + 1];
+              lead_cre[j * NT + t] = acc[t < NP ? t : 2 * NP];
+              lead_cim[j * NT + t] = acc[t < NP ? NP + t : 2 * NP + 1];
             }
           }
-          __syncthreads();
-        }
-      } else {
-        for (int j = 0; j < k.K; ++j) {
+        } else {
           const float* b0 = bank_c + (size_t)q.j0[j] * NT * k.W;
           float acc[4 * NT];
           k1_accumulate<T, NT>(src_re, src_im, bb + q.win[j], q.ph0[j],
@@ -494,22 +529,23 @@ __device__ __forceinline__ void fast_loop_body(
                                k.n_eff, acc, threadIdx.x, blockDim.x);
           block_sum<4 * NT>(acc, scratch);
           if (threadIdx.x == 0)
-            k1_interp<NT>(acc, q.w[j], s_cre + j * NT, s_cim + j * NT);
-          __syncthreads();
+            k1_interp<NT>(acc, q.w[j], lead_cre + j * NT, lead_cim + j * NT);
         }
+        __syncthreads();   // scratch is free for the next period
       }
-      if (threadIdx.x == 0) {
+      cluster.sync();   // every period's sums with the leader
+      if (lead && threadIdx.x == 0) {
         const size_t bg = (size_t)b * k.n_groups + g;
         close_group<NP, ND>(k, st, q, s_cre, s_cim,
                             packed + (bg * C + c) * row_w,
                             prompt_re[bg * C + c], prompt_im[bg * C + c]);
+        // after a block's last group its offsets are rebased
+        if (g == k.n_groups - 1 && st.active) st.offset -= k.block_samples;
       }
-      __syncthreads();
+      __syncthreads();   // the leader's carry before the next prologue
     }
-    if (threadIdx.x == 0 && st.active) st.offset -= k.block_samples;
-    __syncthreads();
   }
-  if (threadIdx.x == 0) store_carry(out, c, k, st);
+  if (lead && threadIdx.x == 0) store_carry(out, c, k, st);
 }
 
 // K1-loop with the code bank (the production correlator)
@@ -538,24 +574,44 @@ fast_loop_seg_kernel(const T* __restrict__ src_re,
                                   packed, prompt_re, prompt_im);
 }
 
-template <typename T, int NP, int ND, bool SEG>
-int launch_one(const T* re, const T* im, long long base, const float* bank,
-               const FastStatePtrs& in, const FastStatePtrs& out,
-               const FastConsts& k, float* packed, float* prompt_re,
-               float* prompt_im, int C, cudaStream_t stream) {
-  void (*kern)(const T*, const T*, long long, const float*, FastStatePtrs,
-               FastStatePtrs, FastConsts, float*, float*, float*) =
-      SEG ? fast_loop_seg_kernel<T, NP, ND> : fast_loop_kernel<T, NP, ND>;
-  const size_t smem = SEG ? sizeof(float) * k.table_len : 0;
-  if (smem > kDefaultSmem) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
+template <typename T>
+using FastKernel = void (*)(const T*, const T*, long long, const float*,
+                            FastStatePtrs, FastStatePtrs, FastConsts, float*,
+                            float*, float*);
+
+template <typename T, int NP, int ND>
+FastKernel<T> fast_kernel_of(bool seg) {
+  return seg ? fast_loop_seg_kernel<T, NP, ND> : fast_loop_kernel<T, NP, ND>;
+}
+
+// the kernel instance of the taps (NP), the data prompt (ND) and the
+// correlator
+template <typename T>
+FastKernel<T> fast_kernel(int n_taps, int track_pilot, bool seg) {
+  switch (n_taps * 2 + (track_pilot ? 1 : 0)) {
+    case 6: return fast_kernel_of<T, 3, 0>(seg);
+    case 7: return fast_kernel_of<T, 3, 1>(seg);
+    case 10: return fast_kernel_of<T, 5, 0>(seg);
+    case 11: return fast_kernel_of<T, 5, 1>(seg);
+    default: return nullptr;
   }
-  kern<<<C, kThreads, smem, stream>>>(re, im, base, bank, in, out, k,
-                                      packed, prompt_re, prompt_im);
-  return static_cast<int>(cudaGetLastError());
+}
+
+// dynamic shared memory: K1-seg's pilot table (K1 needs none)
+size_t fast_smem(bool seg, int table_len) {
+  return seg ? sizeof(float) * table_len : 0;
+}
+
+// The cluster size of a K-period group: the fewest rounds of periods
+// over at most kMaxCluster blocks (kPortableCluster where each block
+// holds more than 48 KB of table, one block an SM), the periods then
+// spread evenly: K = 20 -> 10 blocks of 2 periods, K = 25 -> 13 blocks
+// (12 of 2, one of 1). Each period is one block's whole, so the size
+// changes no bit of the result.
+int fast_cluster(int K, size_t smem) {
+  const int cap = smem > kSmemNoOptIn ? kPortableCluster : kMaxCluster;
+  const int rounds = (K + cap - 1) / cap;
+  return (K + rounds - 1) / rounds;
 }
 
 template <typename T>
@@ -563,32 +619,17 @@ int launch(const T* re, const T* im, long long base, const float* bank,
            int n_taps, int track_pilot, FastStatePtrs in, FastStatePtrs out,
            FastConsts k, float* packed, float* prompt_re, float* prompt_im,
            int C, cudaStream_t stream) {
-  if (k.cn0_samples < 1 || k.cn0_samples > kMaxCn0 || k.K < 1 ||
-      k.K > kMaxK || k.sec_max_len < 1 ||
+  const FastKernel<T> kern = fast_kernel<T>(n_taps, track_pilot, k.seg != 0);
+  if (kern == nullptr || k.cn0_samples < 1 || k.cn0_samples > kMaxCn0 ||
+      k.K < 1 || k.K > kMaxK || k.sec_max_len < 1 ||
       k.sec_max_len > kMaxSec || C < 1 ||
       (k.loop == kLoopGaussian && k.gs.order != 2 && k.gs.order != 3) ||
       (k.seg && (k.table_len < 1 || k.lg < 1 || k.lg > k.total)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int key = n_taps * 2 + (track_pilot ? 1 : 0);
-  // the correlator is a compile-time parameter beside the taps (NP) and
-  // the data prompt (ND)
-#define K1L_CASE(NP, ND)                                                   \
-  case NP * 2 + ND:                                                        \
-    return k.seg ? launch_one<T, NP, ND, true>(re, im, base, bank, in,     \
-                                               out, k, packed, prompt_re,  \
-                                               prompt_im, C, stream)       \
-                 : launch_one<T, NP, ND, false>(re, im, base, bank, in,    \
-                                                out, k, packed, prompt_re, \
-                                                prompt_im, C, stream);
-  switch (key) {
-    K1L_CASE(3, 0)
-    K1L_CASE(3, 1)
-    K1L_CASE(5, 0)
-    K1L_CASE(5, 1)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef K1L_CASE
+  const size_t smem = fast_smem(k.seg != 0, k.table_len);
+  return cluster_launch(kern, C, fast_cluster(k.K, smem), kThreads, smem,
+                        stream, re, im, base, bank, in, out, k, packed,
+                        prompt_re, prompt_im);
 }
 
 }  // namespace
@@ -615,6 +656,26 @@ int fast_loop_f32(const float* re, const float* im, long long base,
   return launch<float>(re, im, base, bank, n_taps, track_pilot, in, out, k,
                        packed, prompt_re, prompt_im, C,
                        static_cast<cudaStream_t>(stream));
+}
+
+// K1-loop's cluster on the current card (the bank body, or seg != 0 the
+// segmented sum on tables of table_len entries): its size S for K-period
+// groups and cudaOccupancyMaxActiveClusters.
+int fast_loop_cluster(int n_taps, int track_pilot, int i8, int seg, int K,
+                      int table_len, int* S, int* n_active) {
+  const size_t smem = fast_smem(seg != 0, table_len);
+  const int s = fast_cluster(K, smem);
+  *S = s;
+  if (i8) {
+    const FastKernel<int8_t> kern =
+        fast_kernel<int8_t>(n_taps, track_pilot, seg != 0);
+    if (kern == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    return cluster_occupancy(kern, s, kThreads, smem, n_active);
+  }
+  const FastKernel<float> kern =
+      fast_kernel<float>(n_taps, track_pilot, seg != 0);
+  if (kern == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return cluster_occupancy(kern, s, kThreads, smem, n_active);
 }
 
 }  // extern "C"

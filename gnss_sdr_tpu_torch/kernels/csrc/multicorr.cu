@@ -21,11 +21,18 @@
 // hundred kilobytes and ~1 MFLOP; at the Galileo E1 shapes (8 channels x
 // 16016 samples, 5 taps on 49104-entry CBOC sub-chip tables) it is the
 // 1.6 MB of tables and ~3 MFLOP. Either way a launch is bound by its
-// launch latency, not by bytes or operations. Design: one block per
-// channel, the code table in shared memory (no per-sample global gather;
-// a 196 KB E1 table takes the opt-in dynamic shared memory above 48 KB),
-// the int8 ring widened in the load (no dequantized copy), one sincosf
-// per sample shared by all taps, and a single block reduction at the end.
+// launch latency and the per-sample latency of one window, not by bytes
+// or operations. Design: one thread-block cluster per channel, the
+// window cut into S slices of ceil(max_period / S) samples (S =
+// corr_common.cuh::k3_slices(max_period), 8 at the L1 and E1 widths),
+// one block a slice; each block holds the code table in shared memory
+// (no per-sample global gather; a 196 KB E1 table takes the opt-in
+// dynamic shared memory above 48 KB), reduces its slice over its 256
+// threads, and the cluster's leader adds the S slice sums in slice order
+// through distributed shared memory. K3-loop (scan_loop.cu) cuts every
+// period's window the same way, so its correlations stay equal to K3's.
+// The int8 ring is widened in the load (no dequantized copy), and one
+// sincosf per sample is shared by all taps.
 // The E1 data-component prompt is a second launch on the same windows:
 // the pilot and data tables do not fit one block's 227 KB together. The
 // per-window body is corr_common.cuh's k3_accumulate, which the scan
@@ -44,7 +51,7 @@
 // rounded once to float32 (fma_f64 below). n n is never formed as an
 // integer square: JAX's n is float32, inexact in n n past n = 4096, and
 // at E1's three table entries a sample one ulp moves chip edges. The
-// layout is K3's: one block per channel, the table in
+// layout: one block per channel, the table in
 // shared memory (opted in above 48 KB for E1's 49104 entries), one
 // sincosf a sample for all taps. Bound: the windows and tables once, a
 // few hundred kilobytes at C = 8; a launch costs its latency.
@@ -53,8 +60,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-// dynamic shared memory a launch gets without opting in
-constexpr size_t kDefaultSmem = 48 * 1024;
 
 template <typename T, int NT>
 __global__ void __launch_bounds__(kThreads)
@@ -69,9 +74,14 @@ multicorr_kernel(const T* __restrict__ src_re, const T* __restrict__ src_im,
                  const float* __restrict__ carr_step, int max_period,
                  int n_extra, float* __restrict__ out_re,
                  float* __restrict__ out_im) {
+  constexpr int NA = 2 * NT;
   extern __shared__ float s_code[];
-  __shared__ float scratch[2 * NT * 32];
-  const int c = blockIdx.x;
+  __shared__ float scratch[NA * 32];
+  __shared__ float part[kPortableCluster * NA];   // the leader's
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = static_cast<int>(cluster.num_blocks());
+  const int r = static_cast<int>(cluster.block_rank());
+  const int c = blockIdx.x / S;
   for (int i = threadIdx.x; i < code_len; i += blockDim.x)
     s_code[i] = code[(size_t)c * code_len + i];
   __syncthreads();
@@ -79,18 +89,29 @@ multicorr_kernel(const T* __restrict__ src_re, const T* __restrict__ src_im,
   float sh[NT];
 #pragma unroll
   for (int t = 0; t < NT; ++t) sh[t] = shifts[t];
-  float acc[2 * NT];
-  k3_accumulate<T, NT, 0>(src_re, src_im, base + start[c],
-                          min(length[c], max_period), s_code, code_len, sh,
+  const int ls = k3_slice_len(max_period, S);
+  const int len = min(length[c], max_period);
+  float acc[NA];
+  k3_accumulate<T, NT, 0>(src_re, src_im, base + start[c], r * ls,
+                          min(len, (r + 1) * ls), s_code, code_len, sh,
                           n_extra, nullptr, 0, 0, rem_code[c], code_step[c],
                           rem_carr[c], carr_step[c], acc, threadIdx.x,
                           blockDim.x);
-  block_sum<2 * NT>(acc, scratch);
+  block_sum<NA>(acc, scratch);
+  float* lead_part = cluster.map_shared_rank(part, 0);
+  cluster.sync();   // every block of the cluster runs: the leader's memory
   if (threadIdx.x == 0) {
 #pragma unroll
+    for (int i = 0; i < NA; ++i) lead_part[r * NA + i] = acc[i];
+  }
+  cluster.sync();   // every slice's sums with the leader
+  if (r == 0 && threadIdx.x == 0) {
+    float tot[NA];
+    slice_total<NA>(part, S, tot);
+#pragma unroll
     for (int t = 0; t < NT; ++t) {
-      out_re[c * NT + t] = acc[t];
-      out_im[c * NT + t] = acc[NT + t];
+      out_re[c * NT + t] = tot[t];
+      out_im[c * NT + t] = tot[NT + t];
     }
   }
 }
@@ -176,7 +197,7 @@ int launch_hd(const T* re, const T* im, long long base, const int* start,
   const dim3 grid(n_channels), block(kThreads);
 #define K3HD_CASE(NT)                                                      \
   case NT:                                                                 \
-    if (smem > kDefaultSmem) {                                             \
+    if (smem > kSmemNoOptIn) {                                             \
       const cudaError_t e = cudaFuncSetAttribute(                          \
           multicorr_hd_kernel<T, NT>,                                      \
           cudaFuncAttributeMaxDynamicSharedMemorySize,                     \
@@ -200,6 +221,22 @@ int launch_hd(const T* re, const T* im, long long base, const int* start,
 }
 
 template <typename T>
+using K3Kernel = void (*)(const T*, const T*, long long, const int*,
+                          const int*, const float*, int, const float*,
+                          const float*, const float*, const float*,
+                          const float*, int, int, float*, float*);
+
+template <typename T>
+K3Kernel<T> k3_kernel(int n_taps) {
+  switch (n_taps) {
+    case 1: return multicorr_kernel<T, 1>;
+    case 3: return multicorr_kernel<T, 3>;
+    case 5: return multicorr_kernel<T, 5>;
+    default: return nullptr;
+  }
+}
+
+template <typename T>
 int launch(const T* re, const T* im, long long base, const int* start,
            const int* length, const float* code, int code_len,
            const float* shifts, int n_taps, const float* rem_code,
@@ -207,31 +244,14 @@ int launch(const T* re, const T* im, long long base, const int* start,
            const float* carr_step, int max_period, int n_extra,
            float* out_re, float* out_im, int n_channels,
            cudaStream_t stream) {
-  const size_t smem = sizeof(float) * code_len;
-  const dim3 grid(n_channels), block(kThreads);
-#define K3_CASE(NT)                                                        \
-  case NT:                                                                 \
-    if (smem > kDefaultSmem) {                                             \
-      const cudaError_t e = cudaFuncSetAttribute(                          \
-          multicorr_kernel<T, NT>,                                         \
-          cudaFuncAttributeMaxDynamicSharedMemorySize,                     \
-          static_cast<int>(smem));                                         \
-      if (e != cudaSuccess) return static_cast<int>(e);                    \
-    }                                                                      \
-    multicorr_kernel<T, NT><<<grid, block, smem, stream>>>(                \
-        re, im, base, start, length, code, code_len, shifts, rem_code,     \
-        code_step, rem_carr, carr_step, max_period, n_extra, out_re,       \
-        out_im);                                                           \
-    break;
-  switch (n_taps) {
-    K3_CASE(1)
-    K3_CASE(3)
-    K3_CASE(5)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef K3_CASE
-  return static_cast<int>(cudaGetLastError());
+  const K3Kernel<T> kern = k3_kernel<T>(n_taps);
+  if (kern == nullptr || max_period < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return cluster_launch(kern, n_channels, k3_slices(max_period), kThreads,
+                        sizeof(float) * code_len, stream, re, im, base,
+                        start, length, code, code_len, shifts, rem_code,
+                        code_step, rem_carr, carr_step, max_period, n_extra,
+                        out_re, out_im);
 }
 
 }  // namespace
@@ -296,6 +316,23 @@ int multicorr_hd_f32(const float* re, const float* im, long long base,
                           rem_carr, carr_step, carr_rate, max_period, out_re,
                           out_im, n_channels,
                           static_cast<cudaStream_t>(stream));
+}
+
+// K3's cluster on the current card for a window of max_period samples:
+// its size S (the window's slices) and cudaOccupancyMaxActiveClusters.
+int multicorr_cluster(int n_taps, int code_len, int max_period, int i8,
+                      int* S, int* n_active) {
+  const int s = k3_slices(max_period);
+  *S = s;
+  const size_t smem = sizeof(float) * code_len;
+  if (i8) {
+    const K3Kernel<int8_t> kern = k3_kernel<int8_t>(n_taps);
+    if (kern == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    return cluster_occupancy(kern, s, kThreads, smem, n_active);
+  }
+  const K3Kernel<float> kern = k3_kernel<float>(n_taps);
+  if (kern == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return cluster_occupancy(kern, s, kThreads, smem, n_active);
 }
 
 }  // extern "C"

@@ -10,28 +10,39 @@
 // (:779-790). Its plain version is the port's per-step path
 // (tracking/engine.py::TrackingEngine._blocks_stepwise: K3 + PyTorch).
 //
-// One block of 256 threads per channel walks n_blocks x n_steps periods:
-// all threads correlate the period's window with K3's own body
-// (corr_common.cuh: the same thread layout, order and roundings, so the
-// correlations equal K3's to the bit), thread 0 runs the loop body on the
-// channel's carry in shared memory and writes the period's packed record
-// [15 + 2T], and the next period starts after a barrier. After each block
-// the offsets are rebased by block_samples. The carry comes in from the
-// caller's TrackState tensors and goes out into fresh ones.
+// One thread-block cluster per channel walks n_blocks x n_steps periods.
+// Each period's window is cut as K3 cuts it (corr_common.cuh::k3_slices:
+// S slices of ceil(max_period / S) samples, one 256-thread block each),
+// every block correlates its slice with K3's own body, and the leader
+// block adds the S block sums in slice order through distributed shared
+// memory (the same thread layout, partition, order and roundings as K3,
+// so the correlations equal K3's to the bit). Thread 0 of the leader then
+// runs the loop body on the channel's carry in its shared memory, writes
+// the period's packed record [15 + 2T] and publishes the next window's
+// start, length and NCO; after a cluster barrier every block correlates
+// its slice of it. After each block the offsets are rebased by
+// block_samples. The carry comes in from the caller's TrackState tensors
+// and goes out into fresh ones.
 //
 // Bound: a superblock must read each channel's windows once (2 bytes a
 // sample from the int8 ring; 8 from float32 planes), its code table once
 // and write its records once: at L1 (8 channels, 10 blocks x 21 steps of
 // 4016 samples) ~14 MB, ~4 us at 3.35 TB/s. The real floor is the serial
 // chain of periods: each period's NCO depends on the previous period's
-// loop closure, so a channel's 210 periods run one after another, each a
-// 4016-sample reduction across 256 threads plus ~1-2 us of one thread's
-// loop arithmetic. Design: the table in shared memory (opt-in dynamic
-// shared memory for E1's 196 KB), the data-component prompt of a
-// pilot-tracked channel read from global memory on the same rotated
-// samples (the two E1 tables do not fit one block together), the loop
-// arithmetic of loop_common.cuh (explicit float32 roundings, PyTorch's
-// library routines), no host round trip inside a superblock.
+// loop closure, so a channel's 210 periods run one after another. On one
+// block a channel (8 of 132 SMs at C = 8) a whole 4016- or 16016-sample
+// window would be reduced by 256 threads whose per-sample body is bound
+// by latency (an accurate sincosf, a chip search with two divisions a
+// tap); a cluster of 8 blocks puts 8 SMs on each window, and what stays
+// serial is two cluster barriers and ~1-2 us of one thread's loop
+// arithmetic a period. Design: each block holds the
+// table in shared memory (opt-in dynamic shared memory for E1's 196 KB:
+// one block an SM, so a cluster of 8 takes 8 SMs of a GPC and 8 channels
+// run at once), the data-component prompt of a pilot-tracked channel read
+// from global memory on the same rotated samples (the two E1 tables do
+// not fit one block together), the loop arithmetic of loop_common.cuh
+// (explicit float32 roundings, PyTorch's library routines), no host round
+// trip inside a superblock.
 #include "corr_common.cuh"
 #include "loop_common.cuh"
 
@@ -98,7 +109,6 @@ struct ScanConsts {
 namespace {
 
 constexpr int kThreads = 256;
-constexpr size_t kDefaultSmem = 48 * 1024;
 
 // one channel's carry, in shared memory (bools as int)
 template <int NT>
@@ -390,6 +400,33 @@ __device__ void scan_period(const ScanConsts& k, ScanCarry<NT>& s,
   row[14] = s.loss ? 1.0f : 0.0f;
 }
 
+// The window of a channel's next period: its start in the block, its
+// valid length and its code and carrier NCO. The leader publishes it in
+// its shared memory; every block of the cluster correlates its slice.
+struct PeriodNco {
+  int start, len;
+  float rem_chips, code_step, rem_carr, carr_step;
+};
+
+template <int NT>
+__device__ __forceinline__ void next_window(const ScanConsts& k,
+                                            const ScanCarry<NT>& s,
+                                            PeriodNco& p) {
+  // TrackingEngine.window_start: the window stays inside the block
+  p.start = min(max(s.offset, 0), k.total - k.max_period);
+  p.len = min(s.cur_len, k.max_period);
+  p.rem_chips = s.rem_chips;
+  p.code_step = s.code_step;
+  p.rem_carr = s.rem_carr;
+  p.carr_step = s.carr_step;
+}
+
+// One cluster of S blocks per channel (S = k3_slices(max_period)). Per
+// period every block correlates its slice of the window (K3's partition)
+// and writes its block sums into the leader's shared memory; the leader
+// adds them in slice order, runs the loop body on the carry, writes the
+// record and publishes the next window. Two cluster barriers a period:
+// one after the publication, one after the slice sums.
 // ND = 1: the data-component prompt of a pilot-tracked channel
 template <typename T, int NT, int ND>
 __global__ void __launch_bounds__(kThreads)
@@ -397,64 +434,86 @@ scan_loop_kernel(const T* __restrict__ src_re, const T* __restrict__ src_im,
                  long long base, const float* __restrict__ code,
                  const float* __restrict__ dcode, ScanState in,
                  ScanState out, ScanConsts k, float* __restrict__ packed) {
+  constexpr int NA = 2 * (NT + ND);   // the sums of a period
+  constexpr int kW = 15 + 2 * NT;
   extern __shared__ float s_code[];
-  __shared__ float scratch[2 * (NT + ND) * 32];
-  __shared__ ScanCarry<NT> st;
-  const int c = blockIdx.x, C = gridDim.x;
+  __shared__ float scratch[NA * 32];
+  __shared__ ScanCarry<NT> st;                    // the leader's
+  __shared__ PeriodNco nco;                       // the leader's: published
+  __shared__ PeriodNco win;                       // this block's copy
+  __shared__ float part[kPortableCluster * NA];   // the leader's
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = static_cast<int>(cluster.num_blocks());
+  const int r = static_cast<int>(cluster.block_rank());
+  const bool lead = r == 0;
+  const int c = blockIdx.x / S, C = gridDim.x / S;
   for (int i = threadIdx.x; i < k.code_len; i += blockDim.x)
     s_code[i] = code[(size_t)c * k.code_len + i];
-  if (threadIdx.x == 0) load_carry<NT>(in, c, k, st);
-  __syncthreads();
+  if (lead && threadIdx.x == 0) {
+    load_carry<NT>(in, c, k, st);
+    next_window<NT>(k, st, nco);
+  }
   float sh[NT];
 #pragma unroll
   for (int t = 0; t < NT; ++t) sh[t] = k.shifts[t];
   const float* dc = ND ? dcode + (size_t)c * k.dcode_len : nullptr;
-  constexpr int kW = 15 + 2 * NT;
+  const PeriodNco* lead_nco = cluster.map_shared_rank(&nco, 0);
+  float* lead_part = cluster.map_shared_rank(part, 0);
+  const int ls = k3_slice_len(k.max_period, S);
+  const int n_lo = r * ls;
+  __syncthreads();
   for (int b = 0; b < k.n_blocks; ++b) {
     const long long bb = base + (long long)b * k.block_stride;
     for (int step = 0; step < k.n_steps; ++step) {
-      // TrackingEngine.window_start: the window stays inside the block
-      const int start = min(max(st.offset, 0), k.total - k.max_period);
-      float acc[2 * (NT + ND)];
+      cluster.sync();   // the leader's window published
+      if (threadIdx.x == 0) win = *lead_nco;
+      __syncthreads();
+      float acc[NA];
       k3_accumulate<T, NT, ND>(
-          src_re, src_im, bb + start, min(st.cur_len, k.max_period), s_code,
-          k.code_len, sh, k.n_extra, dc, k.dcode_len, k.n_extra_d,
-          st.rem_chips, st.code_step, st.rem_carr, st.carr_step, acc,
+          src_re, src_im, bb + win.start, n_lo, min(win.len, n_lo + ls),
+          s_code, k.code_len, sh, k.n_extra, dc, k.dcode_len, k.n_extra_d,
+          win.rem_chips, win.code_step, win.rem_carr, win.carr_step, acc,
           threadIdx.x, blockDim.x);
-      block_sum<2 * (NT + ND)>(acc, scratch);
+      block_sum<NA>(acc, scratch);
       if (threadIdx.x == 0) {
+#pragma unroll
+        for (int i = 0; i < NA; ++i) lead_part[r * NA + i] = acc[i];
+      }
+      cluster.sync();   // every slice's sums with the leader
+      if (lead && threadIdx.x == 0) {
+        float tot[NA];
+        slice_total<NA>(part, S, tot);
         float* row = packed + (((size_t)b * k.n_steps + step) * C + c) * kW;
         // the decoder's prompt: the data component's, else the pilot's own
-        float dpr = acc[NT / 2], dpi = acc[NT + NT / 2];
+        float dpr = tot[NT / 2], dpi = tot[NT + NT / 2];
         if constexpr (ND == 1) {
-          dpr = acc[2 * NT];
-          dpi = acc[2 * NT + 1];
+          dpr = tot[2 * NT];
+          dpi = tot[2 * NT + 1];
         }
-        scan_period<NT>(k, st, acc, acc + NT, dpr, dpi, row);
+        scan_period<NT>(k, st, tot, tot + NT, dpr, dpi, row);
+        // after a block's last period its offsets are rebased
+        if (step == k.n_steps - 1 && st.active) st.offset -= k.block_samples;
+        next_window<NT>(k, st, nco);
       }
-      __syncthreads();
     }
-    if (threadIdx.x == 0 && st.active) st.offset -= k.block_samples;
-    __syncthreads();
   }
-  if (threadIdx.x == 0) store_carry<NT>(out, c, k, st);
+  if (lead && threadIdx.x == 0) store_carry<NT>(out, c, k, st);
 }
 
-template <typename T, int NT, int ND>
-int launch_one(const T* re, const T* im, long long base, const float* code,
-               const float* dcode, const ScanState& in, const ScanState& out,
-               const ScanConsts& k, float* packed, int C,
-               cudaStream_t stream) {
-  const size_t smem = sizeof(float) * k.code_len;
-  if (smem > kDefaultSmem) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        scan_loop_kernel<T, NT, ND>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
+template <typename T>
+using ScanKernel = void (*)(const T*, const T*, long long, const float*,
+                            const float*, ScanState, ScanState, ScanConsts,
+                            float*);
+
+template <typename T>
+ScanKernel<T> scan_kernel(int n_taps, int track_pilot) {
+  switch (n_taps * 2 + (track_pilot ? 1 : 0)) {
+    case 6: return scan_loop_kernel<T, 3, 0>;
+    case 7: return scan_loop_kernel<T, 3, 1>;
+    case 10: return scan_loop_kernel<T, 5, 0>;
+    case 11: return scan_loop_kernel<T, 5, 1>;
+    default: return nullptr;
   }
-  scan_loop_kernel<T, NT, ND><<<C, kThreads, smem, stream>>>(
-      re, im, base, code, dcode, in, out, k, packed);
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -462,23 +521,13 @@ int launch(const T* re, const T* im, long long base, const float* code,
            const float* dcode, int n_taps, int track_pilot, ScanState in,
            ScanState out, ScanConsts k, float* packed, int C,
            cudaStream_t stream) {
-  if (k.cn0_samples < 1 || k.cn0_samples > kMaxCn0 || k.k_ext < 1 ||
-      k.k_ext > kMaxExt || C < 1)
+  const ScanKernel<T> kern = scan_kernel<T>(n_taps, track_pilot);
+  if (kern == nullptr || k.cn0_samples < 1 || k.cn0_samples > kMaxCn0 ||
+      k.k_ext < 1 || k.k_ext > kMaxExt || C < 1 || k.max_period < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int key = n_taps * 2 + (track_pilot ? 1 : 0);
-#define K3L_CASE(NT, ND)                                                   \
-  case NT * 2 + ND:                                                        \
-    return launch_one<T, NT, ND>(re, im, base, code, dcode, in, out, k,    \
-                                 packed, C, stream);
-  switch (key) {
-    K3L_CASE(3, 0)
-    K3L_CASE(3, 1)
-    K3L_CASE(5, 0)
-    K3L_CASE(5, 1)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef K3L_CASE
+  return cluster_launch(kern, C, k3_slices(k.max_period), kThreads,
+                        sizeof(float) * k.code_len, stream, re, im, base,
+                        code, dcode, in, out, k, packed);
 }
 
 }  // namespace
@@ -501,6 +550,23 @@ int scan_loop_f32(const float* re, const float* im, long long base,
                   float* packed, int C, void* stream) {
   return launch<float>(re, im, base, code, dcode, n_taps, track_pilot, in,
                        out, k, packed, C, static_cast<cudaStream_t>(stream));
+}
+
+// K3-loop's cluster on the current card: its size S (K3's slices of a
+// max_period window) and cudaOccupancyMaxActiveClusters.
+int scan_loop_cluster(int n_taps, int track_pilot, int i8, int code_len,
+                      int max_period, int* S, int* n_active) {
+  const int s = k3_slices(max_period);
+  *S = s;
+  const size_t smem = sizeof(float) * code_len;
+  if (i8) {
+    const ScanKernel<int8_t> kern = scan_kernel<int8_t>(n_taps, track_pilot);
+    if (kern == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    return cluster_occupancy(kern, s, kThreads, smem, n_active);
+  }
+  const ScanKernel<float> kern = scan_kernel<float>(n_taps, track_pilot);
+  if (kern == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return cluster_occupancy(kern, s, kThreads, smem, n_active);
 }
 
 }  // extern "C"

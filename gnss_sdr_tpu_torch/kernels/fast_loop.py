@@ -210,9 +210,21 @@ def fast_loop(eng, state, src_re, src_im, base: int, block_stride: int,
     f = kb.function("fast_loop", fn, [
         kb.VP, kb.VP, kb.I64, kb.VP, kb.I32, kb.I32, pt, pt, FastConsts,
         kb.VP, kb.VP, kb.VP, kb.I32, kb.VP])
-    err = f(src_re.data_ptr(), src_im.data_ptr(), int(base), bank.data_ptr(),
-            t, int(pilot), s_in, s_out, k, packed.data_ptr(),
-            prompt_re.data_ptr(), prompt_im.data_ptr(), c, kb.stream_ptr())
+    err = kb.launch(f, dev, src_re.data_ptr(), src_im.data_ptr(), int(base),
+                    bank.data_ptr(), t, int(pilot), s_in, s_out, k,
+                    packed.data_ptr(), prompt_re.data_ptr(),
+                    prompt_im.data_ptr(), c)
     kb.check(err, fn)
     LAUNCHES["fast_loop_seg" if k.seg else "fast_loop"] += 1
     return new, packed, prompt_re, prompt_im
+
+
+def cluster(eng, src_dtype, device) -> dict:
+    """K1-loop's cluster for fast engine ``eng`` on card ``device``
+    (samples of ``src_dtype``): ``cluster_size`` (blocks a channel, each
+    correlating whole periods of a group) and ``max_active_clusters``
+    (``kb.cluster_query``)."""
+    return kb.cluster_query("fast_loop", "fast_loop_cluster", device,
+                            eng.n_taps, eng.track_pilot,
+                            src_dtype == torch.int8,
+                            eng.correlator == "segsum", eng.k, eng.table_len)

@@ -145,12 +145,12 @@ def kf_step(x, p, code_err, phase_err, f, q, r):
     x_out = torch.empty_like(x)
     p_out = torch.empty_like(p)
     delta = torch.empty_like(x)
-    err = kb.function("loops", "kf_step", [
+    fn = kb.function("loops", "kf_step", [
         kb.VP, kb.VP, kb.VP, kb.VP, kb.I32, KfParams, kb.VP, kb.VP, kb.VP,
-        kb.VP])(
-        x.data_ptr(), p.data_ptr(), code_err.data_ptr(),
-        phase_err.data_ptr(), c, prm, x_out.data_ptr(), p_out.data_ptr(),
-        delta.data_ptr(), kb.stream_ptr())
+        kb.VP])
+    err = kb.launch(fn, x.device, x.data_ptr(), p.data_ptr(),
+                    code_err.data_ptr(), phase_err.data_ptr(), c, prm,
+                    x_out.data_ptr(), p_out.data_ptr(), delta.data_ptr())
     kb.check(err, "kf_step")
     LAUNCHES["kf_step"] += 1
     return x_out, p_out, delta
@@ -229,14 +229,15 @@ def gaussian_step(x, p, niw_iter, niw_n, niw_mu, niw_psi, phase_err,
     it_out, n_out = torch.empty_like(niw_iter), torch.empty_like(niw_n)
     mu_out, psi_out = torch.empty_like(niw_mu), torch.empty_like(niw_psi)
     info = torch.empty((4, c), dtype=torch.float32, device=x.device)
-    err = kb.function("loops", "gaussian_step", [
+    fn = kb.function("loops", "gaussian_step", [
         kb.VP, kb.VP, kb.VP, kb.VP, kb.VP, kb.VP, kb.VP, kb.VP, kb.I32,
-        GsParams, kb.VP, kb.VP, kb.VP, kb.VP, kb.VP, kb.VP, kb.VP, kb.VP])(
-        x.data_ptr(), p.data_ptr(), niw_iter.data_ptr(), niw_n.data_ptr(),
-        niw_mu.data_ptr(), niw_psi.data_ptr(), phase_err.data_ptr(),
-        cn0_db_hz.data_ptr(), c, g, x_out.data_ptr(), p_out.data_ptr(),
-        it_out.data_ptr(), n_out.data_ptr(), mu_out.data_ptr(),
-        psi_out.data_ptr(), info.data_ptr(), kb.stream_ptr())
+        GsParams, kb.VP, kb.VP, kb.VP, kb.VP, kb.VP, kb.VP, kb.VP, kb.VP])
+    err = kb.launch(fn, x.device, x.data_ptr(), p.data_ptr(),
+                    niw_iter.data_ptr(), niw_n.data_ptr(), niw_mu.data_ptr(),
+                    niw_psi.data_ptr(), phase_err.data_ptr(),
+                    cn0_db_hz.data_ptr(), c, g, x_out.data_ptr(),
+                    p_out.data_ptr(), it_out.data_ptr(), n_out.data_ptr(),
+                    mu_out.data_ptr(), psi_out.data_ptr(), info.data_ptr())
     kb.check(err, "gaussian_step")
     LAUNCHES["gaussian_step"] += 1
     return x_out, p_out, it_out, n_out, mu_out, psi_out, info

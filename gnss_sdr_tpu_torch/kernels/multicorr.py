@@ -102,26 +102,36 @@ def multicorr(src_re, src_im, base: int, start, length, code_tables, shifts,
     start = start.contiguous()
     length = length.contiguous()
     if hd:
-        err = kb.function("multicorr", fn, _HD_ARGTYPES)(
-            src_re.data_ptr(), src_im.data_ptr(), int(base),
-            start.data_ptr(), length.data_ptr(), code_tables.data_ptr(),
-            code_len, shifts.data_ptr(), t, rem_code.data_ptr(),
-            code_step.data_ptr(), code_rate.data_ptr(), rem_carr.data_ptr(),
-            carr_step.data_ptr(),
-            None if carr_rate is None else carr_rate.data_ptr(),
-            int(max_period), out_re.data_ptr(), out_im.data_ptr(), c,
-            kb.stream_ptr())
+        f = kb.function("multicorr", fn, _HD_ARGTYPES)
+        err = kb.launch(f, src_re.device, src_re.data_ptr(), src_im.data_ptr(),
+                        int(base), start.data_ptr(), length.data_ptr(),
+                        code_tables.data_ptr(), code_len, shifts.data_ptr(), t,
+                        rem_code.data_ptr(), code_step.data_ptr(),
+                        code_rate.data_ptr(), rem_carr.data_ptr(),
+                        carr_step.data_ptr(),
+                        None if carr_rate is None else carr_rate.data_ptr(),
+                        int(max_period), out_re.data_ptr(), out_im.data_ptr(),
+                        c)
         kb.check(err, fn)
         LAUNCHES["multicorr_hd"] += 1
         return out_re, out_im
     f = kb.function("multicorr", fn, _ARGTYPES)
-    err = f(src_re.data_ptr(), src_im.data_ptr(), int(base),
-            start.data_ptr(), length.data_ptr(), code_tables.data_ptr(),
-            code_len, shifts.data_ptr(), t, rem_code.data_ptr(),
-            code_step.data_ptr(), rem_carr.data_ptr(), carr_step.data_ptr(),
-            int(max_period), int(n_extra), out_re.data_ptr(),
-            out_im.data_ptr(), c,
-            kb.stream_ptr())
+    err = kb.launch(f, src_re.device, src_re.data_ptr(), src_im.data_ptr(),
+                    int(base), start.data_ptr(), length.data_ptr(),
+                    code_tables.data_ptr(), code_len, shifts.data_ptr(), t,
+                    rem_code.data_ptr(), code_step.data_ptr(),
+                    rem_carr.data_ptr(), carr_step.data_ptr(), int(max_period),
+                    int(n_extra), out_re.data_ptr(), out_im.data_ptr(), c)
     kb.check(err, fn)
     LAUNCHES["multicorr"] += 1
     return out_re, out_im
+
+
+def cluster(n_taps: int, code_len: int, max_period: int, src_dtype,
+            device) -> dict:
+    """K3's cluster on card ``device`` for ``n_taps`` taps, tables of
+    ``code_len`` entries and windows of ``max_period`` samples:
+    ``cluster_size`` (the window's slices, one block each) and
+    ``max_active_clusters`` (``kb.cluster_query``)."""
+    return kb.cluster_query("multicorr", "multicorr_cluster", device, n_taps,
+                            code_len, max_period, src_dtype == torch.int8)

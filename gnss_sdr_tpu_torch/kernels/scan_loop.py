@@ -184,10 +184,21 @@ def scan_loop(eng, state, src_re, src_im, base: int, block_stride: int,
     f = kb.function("scan_loop", fn, [
         kb.VP, kb.VP, kb.I64, kb.VP, kb.VP, kb.I32, kb.I32, pt, pt,
         ScanConsts, kb.VP, kb.I32, kb.VP])
-    err = f(src_re.data_ptr(), src_im.data_ptr(), int(base),
-            code_tables.data_ptr(),
-            data_code_tables.data_ptr() if pilot else None, t, int(pilot),
-            s_in, s_out, k, packed.data_ptr(), c, kb.stream_ptr())
+    err = kb.launch(f, dev, src_re.data_ptr(), src_im.data_ptr(), int(base),
+                    code_tables.data_ptr(),
+                    data_code_tables.data_ptr() if pilot else None, t,
+                    int(pilot), s_in, s_out, k, packed.data_ptr(), c)
     kb.check(err, fn)
     LAUNCHES["scan_loop"] += 1
     return new, packed
+
+
+def cluster(eng, code_len: int, src_dtype, device) -> dict:
+    """K3-loop's cluster for scan engine ``eng`` on card ``device`` (code
+    tables of ``code_len`` entries, samples of ``src_dtype``):
+    ``cluster_size`` (K3's slices of a ``max_period`` window, one block
+    each) and ``max_active_clusters`` (``kb.cluster_query``)."""
+    return kb.cluster_query("scan_loop", "scan_loop_cluster", device,
+                            eng.cfg.n_taps, eng.cfg.track_pilot,
+                            src_dtype == torch.int8, code_len,
+                            eng.max_period)

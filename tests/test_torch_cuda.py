@@ -25,12 +25,13 @@ def _ring(dev, n, seed=0):
                            .astype(np.int8), device=dev)
 
 
-def _multicorr_case(dev, n_taps, src_dtype):
+def _multicorr_case(dev, n_taps, src_dtype, width=2516,
+                    lengths=(2500, 2501, 2499, 2500)):
     from gnss_sdr_tpu_torch.kernels import multicorr as k3
     from gnss_sdr_tpu_torch.ops.correlator import n_extra_bins
 
     rng = np.random.default_rng(n_taps)
-    c, width = 4, 2516
+    c = 4
     # the int8 ring (phase A superblocks) or a float32 block
     # (process_block)
     ring = _ring(dev, 40000, n_taps).to(getattr(torch, src_dtype))
@@ -43,8 +44,9 @@ def _multicorr_case(dev, n_taps, src_dtype):
     args = (ring[0], ring[1], 1000, t(np.array([0, 500, 9000, 20000],
                                                np.int32)),
             # period lengths near one code period, as the scan engine
-            # produces them (the segmented form's bins cover one period)
-            t(np.array([2500, 2501, 2499, 2500], np.int32)),
+            # produces them (the segmented form's bins cover one period),
+            # or shorter (a window's slices past its length sum nothing)
+            t(np.array(lengths, np.int32)),
             t(np.sign(rng.standard_normal((c, 1023))).astype(np.float32)),
             t(shifts), t(rng.uniform(0, 0.4, c).astype(np.float32)),
             t(np.full(c, 1.023e6 / 2.5e6, np.float32)),
@@ -60,12 +62,21 @@ def _multicorr_case(dev, n_taps, src_dtype):
 
 def test_multicorr_kernel_matches_plain(dev):
     """K3 against its plain version for 1, 3 and 5 taps on the int8 ring
-    and on float32 planes
+    and on float32 planes; K3 cuts each window into S slices of
+    ceil(width / S) samples, one block of a cluster each
+    (``corr_common.cuh::k3_slices``): windows of 2516 samples (S = 5),
+    of 4016 (S = 8, the L1 width; no multiple of S x 256) with valid
+    lengths down to a few samples, and of 700 (S = 2) with lengths
+    shorter than one slice and 0
     (the cases run in one test: the tier-1 run's count of collected
     tests sets xdist's schedule of the memory-heavy JAX tests)."""
     for n_taps in (1, 3, 5):
         for src_dtype in ("int8", "float32"):
             _multicorr_case(dev, n_taps, src_dtype)
+    for width, lengths in ((4016, (4016, 3999, 1500, 7)),
+                           (700, (700, 349, 13, 0))):
+        for n_taps in (1, 3):
+            _multicorr_case(dev, n_taps, "int8", width, lengths)
 
 
 @pytest.mark.parametrize("src_dtype", ["int8", "float32"])
@@ -156,6 +167,12 @@ def test_acq_kernels_match_plain(dev):
 
 
 def test_kernel_wrappers_count_launches(dev):
+    """A wrapper counts its kernel's launches, not its plain version's
+    calls. With two cards or more, the device guard of the launch path
+    (``kernels/build.py::launch``): a K1 and a K3-loop launch on tensors
+    of the second card, the first card current, run on the second card
+    (the profiler's kernel events) and equal the same launches on the
+    first card to the bit."""
     from gnss_sdr_tpu_torch.kernels import LAUNCHES, acq, reset_launches
 
     reset_launches()
@@ -163,6 +180,55 @@ def test_kernel_wrappers_count_launches(dev):
     acq.acq_wipeoff(x, torch.zeros(2, device=dev), -1e-6)
     acq.acq_wipeoff_plain(x, torch.zeros(2, device=dev), -1e-6)
     assert LAUNCHES["acq_wipeoff"] == 1
+    if torch.cuda.device_count() >= 2:
+        cards = [_device_guard_case(torch.device("cuda", i)) for i in (0, 1)]
+        assert all(torch.equal(a, b) for a, b in zip(*cards))
+
+
+def _device_guard_case(card):
+    """K1 (bank_corr) and one K3-loop block (scan engine, 4 channels)
+    on ``card`` with card 0 current: the outputs on the host."""
+    from gnss_sdr_tpu_torch.codes import gps_l1ca_code
+    from gnss_sdr_tpu_torch.kernels import LAUNCHES, reset_launches
+    from gnss_sdr_tpu_torch.kernels import bank_corr as k1
+    from gnss_sdr_tpu_torch.tracking.engine import (TrackingConfig,
+                                                    TrackingEngine)
+
+    torch.cuda.set_device(0)
+    rng = np.random.default_rng(11)
+    eng = TrackingEngine(TrackingConfig(fs=FS), 4, 80000, device=card)
+    ring = _ring(card, 80000 + eng.overlap, 11)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a), device=card)
+
+    c, k, p1, nt, w = 4, 20, 17, 3, 4608
+    args = (ring[0], ring[1], 0,
+            t(np.sort(rng.integers(0, 70000, (c, k))).astype(np.int32)),
+            t(rng.uniform(0, 30, (c, k)).astype(np.float32)),
+            t(rng.uniform(-0.01, 0.01, c).astype(np.float32)),
+            t(np.sign(rng.standard_normal((c, p1, nt, w))).astype(np.float32)),
+            t(rng.integers(0, 16, (c, k)).astype(np.int32)),
+            t(rng.uniform(0, 1, (c, k)).astype(np.float32)), 4001)
+    s = eng.init_state()
+    for ch in range(c):
+        s = eng.start_channel(s, ch, float(rng.uniform(-4000, 4000)),
+                              int(rng.integers(0, 4000)), 4000)
+    codes = t(np.stack([gps_l1ca_code(p) for p in PRNS[:c]])
+              .astype(np.float32))
+    reset_launches()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        got = k1.bank_corr(*args)
+        sb, out = eng.superblock_ring_i8(s, ring, 0, 1, codes)
+        torch.cuda.synchronize(card)
+    assert LAUNCHES["bank_corr"] == 1 and LAUNCHES["scan_loop"] == 1
+    assert torch.cuda.current_device() == 0
+    ran = {e.device_index for e in prof.events()
+           if "bank_corr_kernel" in e.name or "scan_loop_kernel" in e.name}
+    assert ran == {card.index}, ran
+    return [x.cpu() for x in (*got, out["packed"], sb.offset,
+                              sb.carrier_doppler_hz)]
 
 
 def test_multicorr_kernel_long_window_matches_plain(dev):
@@ -534,11 +600,15 @@ def _scene(dev, n, chans, e1, seed):
 
 
 PRNS = (1, 2, 10, 12, 15, 17, 18, 21)
+#: PRNs of the channels past the eighth (the cluster cases' C = 13)
+MORE_PRNS = (3, 5, 7, 9, 24)
+#: a PRN absent from every scene here (a channel tracking noise)
+ABSENT_PRN = 30
 
 
-def _pulled_in_scan(dev, e1, pilot=False, k_ext=1):
-    """A scan engine (8 channels, 20 ms blocks), its ring, code tables and
-    its state after 8 blocks of pull-in through the plain path."""
+def _pulled_in_scan(dev, e1, pilot=False, k_ext=1, n=8):
+    """A scan engine (``n`` channels, 20 ms blocks), its ring, code tables
+    and its state after 8 blocks of pull-in through the plain path."""
     from gnss_sdr_tpu_torch.codes import gps_l1ca_code
     from gnss_sdr_tpu_torch.codes.galileo_e1 import galileo_e1_subchips
     from gnss_sdr_tpu_torch.tracking.engine import (TrackingConfig,
@@ -546,8 +616,9 @@ def _pulled_in_scan(dev, e1, pilot=False, k_ext=1):
 
     rng = np.random.default_rng(30 + e1 + pilot)
     period = 16000 if e1 else 4000
-    chans = list(zip(PRNS, rng.uniform(0, period, 8),
-                     rng.uniform(-4000, 4000, 8)))
+    prns = (PRNS + MORE_PRNS)[:n]
+    chans = list(zip(prns, rng.uniform(0, period, n),
+                     rng.uniform(-4000, 4000, n)))
     kw = dict(fs=FS, enable_fll_pull_in=True, pull_in_time_s=0.1,
               extend_correlation_symbols=k_ext)
     if e1:
@@ -556,12 +627,12 @@ def _pulled_in_scan(dev, e1, pilot=False, k_ext=1):
                   pll_bw_narrow_hz=2.0,
                   early_late_space_chips=0.15,
                   very_early_late_space_chips=0.6, track_pilot=pilot)
-    eng = TrackingEngine(TrackingConfig(**kw), 8, 80000, device=dev)
+    eng = TrackingEngine(TrackingConfig(**kw), n, 80000, device=dev)
     ring = _scene(dev, 40 * 80000 + eng.overlap, chans, e1, 40 + e1)
 
     def tables(comp):
         rows = [galileo_e1_subchips(p, comp, True) if e1 else gps_l1ca_code(p)
-                for p in PRNS]
+                for p in prns]
         return torch.as_tensor(np.stack(rows).astype(np.float32), device=dev)
 
     codes = tables("C" if pilot else "B")
@@ -603,32 +674,62 @@ def _records_close(pa, pb, valid, start, rem, dopp, cn0, prompt):
 def test_scan_loop_matches_stepwise(dev):
     """K3-loop over one 10-block superblock from a pulled-in state against
     the per-step path on the card: the first step's correlations to the
-    bit (K3's own body), every record and the end state within the JAX
-    suite's tolerances; one launch per call, no K3 launch; the float32
-    planes of process_block and superblock_step likewise; L1 and the E1
-    pilot in extended integration
+    bit (K3's own body and window partition), every record and the end
+    state within the JAX suite's tolerances; one launch per call, no K3
+    launch; the float32 planes of process_block and superblock_step
+    likewise; L1 and the E1 pilot in extended integration; L1 with a
+    channel inactive from the start and one that loses lock inside the
+    superblock; L1 with 5 and 13 channels (clusters of 8 blocks: C not a
+    multiple of what the card holds at once)
     (the cases run in one test: the tier-1 run's count of collected
     tests sets xdist's schedule of the memory-heavy JAX tests)."""
-    for case in ("l1", "e1-pilot-extended"):
+    for case in ("l1", "e1-pilot-extended", "l1-edge", "l1-c5", "l1-c13"):
         _scan_loop_case(dev, case)
+
+
+def _edge_channels(state, codes, max_fail):
+    """A state with channel 3 inactive from the start and channel 1 on a
+    code table of a PRN absent from the scene with its lock-fail counters
+    at their limits (``max_fail``: code, carrier), so that it loses lock
+    at its next failed test; the code tables to match."""
+    from gnss_sdr_tpu_torch.codes import gps_l1ca_code
+
+    active = state.active.clone()
+    active[3] = False
+    fails = [f.clone() for f in (state.code_lock_fail,
+                                 state.carrier_lock_fail)]
+    for f, m in zip(fails, max_fail):
+        f[1] = m
+    codes = codes.clone()
+    codes[1] = torch.as_tensor(gps_l1ca_code(ABSENT_PRN).astype(np.float32),
+                               device=codes.device)
+    return state._replace(active=active, code_lock_fail=fails[0],
+                          carrier_lock_fail=fails[1]), codes
 
 
 def _scan_loop_case(dev, case):
     from gnss_sdr_tpu_torch.codes.galileo_e1 import E1C_SECONDARY
     from gnss_sdr_tpu_torch.kernels import LAUNCHES, reset_launches
 
-    e1 = case != "l1"
+    e1 = case.startswith("e1")
+    n = {"l1-c5": 5, "l1-c13": 13}.get(case, 8)
     eng, ring, codes, dcodes, s, chans = _pulled_in_scan(
-        dev, e1, pilot=e1, k_ext=25 if e1 else 20)
+        dev, e1, pilot=e1, k_ext=25 if e1 else 20, n=n)
     base = 8 * 80000
     if e1:          # extended integration over the CS25-wiped pilot
         for ch, p in enumerate(_next_periods(s, chans, base, 16000)):
             s = eng.set_extended(s, ch, p % 25, E1C_SECONDARY)
     else:
-        for ch in range(0, 8, 2):
+        for ch in range(0, n, 2):
             s = eng.set_extended(s, ch, ch % 20)
+    if case == "l1-edge":
+        s, codes = _edge_channels(s, codes, (eng.cfg.max_code_lock_fail,
+                                             eng.cfg.max_carrier_lock_fail))
     sa, pa = eng._blocks_stepwise(s, ring[0], ring[1], base, 80000, 10,
                                   codes, dcodes)
+    if case == "l1-edge":   # the two channels are what the case holds
+        assert not bool(s.loss_of_lock[1]) and bool(sa.loss_of_lock[1])
+        assert not bool(pa[..., 3, 0].any())
     reset_launches()
     sb, out = eng.superblock_ring_i8(s, ring, base, 10, codes, dcodes)
     assert LAUNCHES["scan_loop"] == 1 and LAUNCHES["multicorr"] == 0
@@ -645,8 +746,8 @@ def _scan_loop_case(dev, case):
     bnd = (sa.offset.double() + sa.rem_code_phase_samples.double()) \
         - (sb.offset.double() + sb.rem_code_phase_samples.double())
     assert float(bnd.abs().max()) < 0.02
-    assert pb.shape == (10, eng.n_steps, 8, 15 + 2 * t)
-    if e1:
+    assert pb.shape == (10, eng.n_steps, n, 15 + 2 * t)
+    if case != "l1":
         return
     # the float32 planes: one block (process_block), two (superblock_step)
     lo, width = base, 80000 + eng.overlap
@@ -670,13 +771,15 @@ def _fast_case(dev, case, correlator="bank"):
 
     e1 = case.startswith("e1")
     pilot = case == "e1-pilot"
-    eng, ring, codes, dcodes, s, chans = _pulled_in_scan(dev, e1, pilot)
+    eng, ring, codes, dcodes, s, chans = _pulled_in_scan(
+        dev, e1, pilot, n={"fllpll-c5": 5, "fllpll-c13": 13}.get(case, 8))
     cfg = dataclasses.replace(
         eng.cfg, extend_correlation_symbols={"e1-pilot": 25,
                                              "e1-k1": 1}.get(case, 20),
         pll_bw_narrow_hz=2.0 if pilot else 5.0)
     loop = case if case in ("kf", "gaussian") else "fllpll"
-    fast = FastTrackingEngine(cfg, 8, {"e1-pilot": 1, "e1-k1": 25}.get(
+    fast = FastTrackingEngine(cfg, eng.n_channels, {"e1-pilot": 1,
+                                                    "e1-k1": 25}.get(
         case, 5), correlator=correlator, loop=loop,
         sec_max_len=25 if pilot else 1, device=dev)
     fs = fast.from_track_state(s)
@@ -694,10 +797,14 @@ def test_fast_loop_matches_stepwise(dev):
     and the end state within the JAX suite's tolerances; one launch per
     call and no K1 or K6 launch, for the three loops at L1 (K = 20), the
     E1 pilot with the data tap and CS25 (K = 25) and E1-B alone (K = 1);
-    process_block's float32 planes likewise
+    process_block's float32 planes likewise; at L1 with a channel
+    inactive from the start and one that loses lock inside the
+    superblock, and with 5 and 13 channels (clusters of 10 blocks: C
+    not a multiple of what the card holds at once)
     (the cases run in one test: the tier-1 run's count of collected
     tests sets xdist's schedule of the memory-heavy JAX tests)."""
-    for case in ("fllpll", "kf", "gaussian", "e1-pilot", "e1-k1"):
+    for case in ("fllpll", "kf", "gaussian", "e1-pilot", "e1-k1",
+                 "fllpll-edge", "fllpll-c5", "fllpll-c13"):
         _fast_loop_case(dev, case)
 
 
@@ -705,17 +812,23 @@ def _fast_loop_case(dev, case):
     from gnss_sdr_tpu_torch.kernels import LAUNCHES, reset_launches
 
     fast, ring, codes, dcodes, s, base = _fast_case(dev, case)
+    if case == "fllpll-edge":
+        s, codes = _edge_channels(s, codes, (fast.cfg.max_code_lock_fail,
+                                             fast.cfg.max_carrier_lock_fail))
     bank = fast.get_bank(codes, dcodes)
     nb = 2 if case == "e1-pilot" else 4
     sa, pa, ra, ia = fast._blocks_stepwise(s, ring[0], ring[1], base,
                                            fast.block_samples, nb, bank)
+    if case == "fllpll-edge":   # the two channels are what the case holds
+        assert not bool(s.loss_of_lock[1]) and bool(sa.loss_of_lock[1])
+        assert not bool(pa[..., 3, 5 * fast.k + 2].any())
     reset_launches()
     sb, out = fast.superblock_ring_i8(s, ring, base, nb, bank)
     assert LAUNCHES["fast_loop"] == 1
     assert sum(LAUNCHES[k] for k in ("bank_corr", "kf_step",
                                      "gaussian_step")) == 0
     pb, k = out["packed"], fast.k
-    assert pb.shape == (nb, fast.g, 8, 5 * k + 4)
+    assert pb.shape == (nb, fast.g, fast.n_channels, 5 * k + 4)
     assert torch.equal(pa[0, 0, :, 2 * k:5 * k], pb[0, 0, :, 2 * k:5 * k])
     for j in range(k):
         _records_close(pa, pb, 5 * k + 2, j, k + j, 5 * k, 5 * k + 1,

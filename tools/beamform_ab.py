@@ -80,7 +80,8 @@ def main() -> int:
         y = torch.empty(n, dtype=torch.complex64, device="cuda")
         err = libs[tag].beamform(
             xr.data_ptr(), xr.data_ptr() + 4, 2, 2 * n, m, n,
-            w_re.data_ptr(), w_im.data_ptr(), y.data_ptr(), kb.stream_ptr())
+            w_re.data_ptr(), w_im.data_ptr(), y.data_ptr(),
+            kb.stream_ptr(y.device))
         kb.check(err, f"beamform ({tag})")
         return y
 

@@ -30,7 +30,9 @@
    pairs through ``Pulse_Blanking_Filter`` + ``Mmse_Resampler``; C with a
    CW tone through ``Notch_Filter`` + ``Direct_Resampler``. Each config's
    conditioner kernels (K7a-K7d) are held against their plain versions on
-   its capture. Then 3 s of A stream through the CLI's streaming branch
+   its capture (K7a also timed with the translation off; K7c timed in
+   place, the form ``notch_filter_block`` runs, and into a new tensor).
+   Then 3 s of A stream through the CLI's streaming branch
    (a FIFO source, ``apply_stream``, the scan receiver), held against
    the one-shot output.
 6. Galileo E1 kernel phase: K1 at the E1 band's fast-engine shapes
@@ -143,8 +145,10 @@ TOL = {"bank_corr": 1e-4, "multicorr": 1e-3, "acq_wipeoff": 1e-4,
        # K2b does the plain version's float32 operations exactly
        "acq_product": 0.0, "acq_accum": 1e-4, "acq_stats": 1e-4,
        # K7, relative to the rms of the plain output: K7a sums its taps in
-       # the plain version's order with the same roundings, so only the
-       # float64 sincos of two libraries can differ (an ulp of float32);
+       # the plain version's order with the same roundings; its NCO
+       # rotates a float64 phasor between exact sincos, which moves a
+       # phase by up to an ulp of step * n from the plain version's, so
+       # cos and sin can differ by an ulp of float32;
        # K7b-d do the plain version's float32 arithmetic exactly
        "fir_decim": 1e-5, "pulse_blank": 0.0, "notch_mask": 0.0,
        "resample": 0.0,
@@ -1031,6 +1035,8 @@ def check_k7(torch, np, name, raw, chain):
         torch.cuda.synchronize()
         lib_err = float(torch.max(torch.abs(torch.complex(lib[0], lib[1])
                                             - want)))
+        # the split: the same filter without the translation NCO
+        plain_args = (x, taps, d)
         out.append(k7_entry(
             torch, "fir_decim", got, want,
             time_ms(torch, lambda: k7.fir_decim(*args), 10),
@@ -1039,7 +1045,12 @@ def check_k7(torch, np, name, raw, chain):
             lambda: k7.fir_decim(*args),
             "gnss_sdr_tpu/conditioner/fir.py:44",
             f"N={n} complex64, {nt} taps, D={d}, IF {chain.if_freq_hz:g} Hz",
-            library_ms=time_ms(torch, conv, 10), library_max_abs_err=lib_err))
+            library_ms=time_ms(torch, conv, 10), library_max_abs_err=lib_err,
+            translate_off_ms=time_ms(
+                torch, lambda: k7.fir_decim(*plain_args), 10),
+            translate_off_event_us=event_us(
+                torch, lambda: k7.fir_decim(*plain_args)),
+            occupancy=k7.fir_occupancy(nt, d, True, "cuda")))
         return out
     if name == "B":
         sig = chain.pb_threshold_sigma
@@ -1060,17 +1071,36 @@ def check_k7(torch, np, name, raw, chain):
     else:
         k = chain.notch_excision
         spec = torch.fft.fft(x)
-        got, want = k7.notch_mask(spec, k), k7.notch_mask_plain(spec, k)
+        want = k7.notch_mask_plain(spec, k)
+        # checked and timed in place, as notch_filter_block runs it (the
+        # timing on a copy whose excised bins its first call zeroes), and
+        # into a new tensor
+        got = k7.notch_mask_(spec.clone(), k)
+        work = spec.clone()
+        fresh = k7.notch_mask(spec, k)
+        route = int(k7._notch_launch(spec, k, torch.empty_like(spec))[
+            k7.NOTCH_ROUTE])
+        torch.cuda.synchronize()
+        if not torch.equal(fresh, want):
+            fail("notch_mask: the new-tensor form differs from its plain "
+                 "version")
+        del fresh
         out.append(k7_entry(
             torch, "notch_mask", got, want,
-            time_ms(torch, lambda: k7.notch_mask(spec, k), 10),
+            time_ms(torch, lambda: k7.notch_mask_(work, k), 10),
             time_ms(torch, lambda: k7.notch_mask_plain(spec, k), 3),
-            2 * n * 8, 5 * n, lambda: k7.notch_mask(spec, k),
+            2 * n * 8, 5 * n, lambda: k7.notch_mask_(work, k),
             "gnss_sdr_tpu/conditioner/interference.py:33",
             f"N={n} complex64 spectrum, k={k:g}",
-            excised=int(torch.sum(want == 0))))
+            excised=int(torch.sum(want == 0)),
+            form="in place (notch_filter_block)",
+            select_route="candidates" if route == 0 else "all bins",
+            new_tensor_ms=time_ms(torch, lambda: k7.notch_mask(spec, k), 10),
+            new_tensor_event_us=event_us(
+                torch, lambda: k7.notch_mask(spec, k)),
+            new_tensor_floor_ms=bound_ms(3 * n * 8, 5 * n)[0]))
         mid = torch.fft.ifft(want)
-        del spec
+        del spec, work
     mode = k7.MMSE if chain.resampler == "Mmse_Resampler" else k7.DIRECT
     fi, fo = chain.fs_mid, chain.fs_out
 

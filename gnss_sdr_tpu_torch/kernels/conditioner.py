@@ -13,7 +13,8 @@ Each takes complex64 samples (1-D) and returns complex64:
 - :func:`notch_mask` (K7c): zero the spectrum bins with |X| above
   factor x median |X|, the median being the midpoint of the two middle
   values as ``jnp.median`` takes it (``interference.py::
-  notch_filter_block`` between its FFTs);
+  notch_filter_block`` between its FFTs); :func:`notch_mask_` the same
+  in place;
 - :func:`resample` (K7d): the Mmse_Resampler's 2-tap linear interpolation
   at k * fs_in / fs_out or the Direct_Resampler's nearest-below sample,
   both with positions computed from the integer k in float64
@@ -191,6 +192,36 @@ def fir_decim(x, taps, decimation: int, nco_step: float = 0.0, n0: int = 0):
     return y
 
 
+def fir_max_taps(decimation: int, device) -> int:
+    """The largest tap count :func:`fir_decim` takes at ``decimation`` on
+    card ``device`` (its tile at 32 threads a block within the card's
+    opt-in shared memory a block)."""
+    device = torch.device(device)
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    taps = _fn("fir_decim_max_taps", [kb.I32, kb.I32])(int(decimation),
+                                                       index)
+    if taps < 1:
+        raise RuntimeError("fir_max_taps: the card's shared memory limit "
+                           "could not be read")
+    return taps
+
+
+def fir_occupancy(n_taps: int, decimation: int, translate: bool,
+                  device) -> dict:
+    """K7a's launch at these shapes on card ``device``: its threads a
+    block and its blocks an SM at once."""
+    import ctypes
+
+    threads, per_sm = ctypes.c_int(0), ctypes.c_int(0)
+    fn = _fn("fir_decim_occupancy", [kb.I32, kb.I32, kb.I32, kb.VP, kb.VP])
+    with torch.cuda.device(torch.device(device)):
+        err = fn(int(n_taps), int(decimation), int(translate),
+                 ctypes.addressof(threads), ctypes.addressof(per_sm))
+    kb.check(err, "fir_decim_occupancy")
+    return dict(threads=threads.value, blocks_per_sm=per_sm.value)
+
+
 def blank_partials(n: int) -> int:
     """Blocks of the first K7b pass: a function of n only, so the order of
     the float64 power sum is the same on every run."""
@@ -217,27 +248,67 @@ def pulse_blank(x, threshold_sigma: float):
     return y
 
 
-def notch_mask(spec, excision_factor: float):
-    """The spectrum with every bin of |X| > factor * median |X| set to 0."""
-    if spec.device.type == "cpu":
-        return notch_mask_plain(spec, excision_factor)
-    spec = _samples(spec, "notch_mask")
+def notch_candidates(n: int) -> int:
+    """Keys K7c's candidate buffer holds: the bins strictly inside its
+    sample's bracket of the median, a few percent of n (n / 16 + 65536,
+    at most n); more send the select over all n bins."""
+    return min(n, n // 16 + 65536)
+
+
+#: the word of K7c's selection state that says how it selected: 0 among
+#: the bracket's candidates, 1 over all n bins after a miss
+NOTCH_ROUTE = 6
+
+
+def _notch_launch(spec, excision_factor: float, out):
+    """K7c on the card: ``out`` (``spec`` itself to mask in place) gets
+    the masked spectrum. Returns the selection state (int32, on the
+    card; ``NOTCH_ROUTE`` says which route selected)."""
     n = spec.shape[0]
     if n >= 1 << 32:
         raise ValueError("notch_mask: at most 2^32 - 1 bins")
     lo, hi = median_ranks(n)
-    mag = torch.empty(n, dtype=torch.float32, device=spec.device)
-    sel = torch.empty(4 + 512, dtype=torch.int32, device=spec.device)
-    thr = torch.empty(1, dtype=torch.float32, device=spec.device)
-    out = torch.empty_like(spec)
-    fn = _fn("notch_mask", [kb.VP, kb.I64, kb.F32, kb.VP, kb.VP, kb.VP,
+    words = _fn("notch_sel_words", [])()
+    sel = torch.empty(words, dtype=torch.int32, device=spec.device)
+    cap = notch_candidates(n)
+    cand = torch.empty(cap, dtype=torch.int32, device=spec.device)
+    fn = _fn("notch_mask", [kb.VP, kb.I64, kb.F32, kb.VP, kb.VP, kb.U32,
                           kb.VP, kb.U32, kb.U32, kb.VP])
     err = kb.launch(fn, spec.device, spec.data_ptr(), n,
-                    float(np.float32(excision_factor)), mag.data_ptr(),
-                    sel.data_ptr(), thr.data_ptr(), out.data_ptr(), lo, hi)
+                    float(np.float32(excision_factor)), sel.data_ptr(),
+                    cand.data_ptr(), cap, out.data_ptr(), lo, hi)
     kb.check(err, "notch_mask")
     LAUNCHES["notch_mask"] += 1
+    return sel
+
+
+def notch_mask(spec, excision_factor: float):
+    """The spectrum with every bin of |X| > factor * median |X| set to 0,
+    as a new tensor."""
+    if spec.device.type == "cpu":
+        return notch_mask_plain(spec, excision_factor)
+    spec = _samples(spec, "notch_mask")
+    out = torch.empty_like(spec)
+    _notch_launch(spec, excision_factor, out)
     return out
+
+
+def notch_mask_(spec, excision_factor: float):
+    """:func:`notch_mask` in place: zeroes the excised bins of ``spec``
+    (on the card only those are written) and returns it (a contiguous
+    copy of a strided ``spec``)."""
+    if spec.device.type == "cpu":
+        return spec.copy_(notch_mask_plain(spec, excision_factor))
+    spec = _samples(spec, "notch_mask")
+    _notch_launch(spec, excision_factor, spec)
+    return spec
+
+
+def notch_sample_positions(n: int) -> torch.Tensor:
+    """The bins K7c samples to bracket the median: s n / m for s < m,
+    m = min(n, the kernel's sample size)."""
+    m = min(n, _fn("notch_sample_size", [])())
+    return torch.arange(m, dtype=torch.int64) * n // m
 
 
 def resample(x, fs_in: float, fs_out: float, mode: int):

@@ -271,10 +271,10 @@ def _rms_close(got, want, tol):
     assert float(torch.max(torch.abs(got - want))) <= tol * rms
 
 
-def _fir_decim_case(dev, decimation, n_taps, nco_step):
+def _fir_decim_case(dev, decimation, n_taps, nco_step, n=50_001):
     from gnss_sdr_tpu_torch.kernels import conditioner as k7
 
-    x = _cx(dev, 50_001, n_taps)
+    x = _cx(dev, n, n_taps)
     taps = np.random.default_rng(1).standard_normal(n_taps) \
         .astype(np.float32) / n_taps
     # an absolute index past 2^31 exercises the 64-bit NCO argument
@@ -285,24 +285,76 @@ def _fir_decim_case(dev, decimation, n_taps, nco_step):
 
 
 def test_fir_decim_kernel_matches_plain(dev):
-    """K7a against its plain version at decimations 1-4 and 33-1001 taps,
-    with and without the translation NCO
+    """K7a against its plain version at decimations 1-5 (D <= 4 keep 8
+    outputs a thread in register windows, D = 5 one) and 33-1001 taps,
+    with and without the translation NCO; then D = 2 at 65 taps with a
+    partial last tile (8 outputs a thread, 2048 a block), an input
+    shorter than the taps, and the largest tap count the launcher takes
+    (one more raises)
     (the cases run in one test: the tier-1 run's count of collected
     tests sets xdist's schedule of the memory-heavy JAX tests)."""
-    for decimation, n_taps in ((1, 33), (2, 65), (4, 65), (3, 1001)):
-        for nco_step in (0.0, -1.1780972450961724):
+    from gnss_sdr_tpu_torch.kernels import conditioner as k7
+
+    step = -1.1780972450961724
+    for decimation, n_taps in ((1, 33), (2, 65), (4, 65), (3, 1001),
+                               (5, 65)):
+        for nco_step in (0.0, step):
             _fir_decim_case(dev, decimation, n_taps, nco_step)
+    _fir_decim_case(dev, 2, 65, step, n=2 * (3 * 2048 + 37) + 1)
+    _fir_decim_case(dev, 2, 65, step, n=40)
+    most = k7.fir_max_taps(2, dev)
+    assert most >= 4096
+    _fir_decim_case(dev, 2, most, step)
+    with pytest.raises(RuntimeError, match="fir_decim"):
+        k7.fir_decim(_cx(dev, 100, 0), np.ones(most + 1, np.float32), 2)
+
+
+def _notch_case(spec, factor=8.0, route=None):
+    """K7c into a new tensor and in place against its plain version, to
+    the bit; ``route``: the selection's expected route (0 among the
+    bracket's candidates, 1 over all bins)."""
+    from gnss_sdr_tpu_torch.kernels import conditioner as k7
+
+    want = k7.notch_mask_plain(spec, factor)
+    assert torch.equal(k7.notch_mask(spec, factor), want)
+    assert torch.equal(k7.notch_mask_(spec.clone(), factor), want)
+    sel = k7._notch_launch(spec, factor, torch.empty_like(spec))
+    if route is not None:
+        assert int(sel[k7.NOTCH_ROUTE]) == route
 
 
 @pytest.mark.parametrize("n", [100_000, 99_999])
 def test_pulse_blank_and_notch_kernels_match_plain(dev, n):
+    """K7b and K7c against their plain versions, to the bit. K7c also on
+    n = 1, 2, 3, a constant magnitude, 40% of the bins tied at the
+    median, magnitudes within 4e-4 of 1.3, and a spectrum whose sampled
+    bins are 60 dB louder, which
+    misbrackets the median and forces the select over all bins
+    (the cases run in one test: the tier-1 run's count of collected
+    tests sets xdist's schedule of the memory-heavy JAX tests)."""
     from gnss_sdr_tpu_torch.kernels import conditioner as k7
 
     x = _cx(dev, n, 4)
     assert torch.equal(k7.pulse_blank(x, 4.0), k7.pulse_blank_plain(x, 4.0))
-    spec = torch.fft.fft(x)
-    assert torch.equal(k7.notch_mask(spec, 8.0),
-                       k7.notch_mask_plain(spec, 8.0))
+    _notch_case(torch.fft.fft(x), route=0)
+    for tiny in (1, 2, 3):
+        _notch_case(torch.fft.fft(_cx(dev, tiny, tiny)))
+    _notch_case(torch.full((n,), 3 + 4j, dtype=torch.complex64, device=dev))
+    rng = np.random.default_rng(9)
+    noise = rng.standard_normal((2, n)).astype(np.float32)
+    spec = torch.complex(*torch.as_tensor(noise, device=dev))
+    spec[torch.as_tensor(rng.random(n) < 0.4, device=dev)] = 1.0
+    _notch_case(spec, 1.5)
+    # magnitudes 1.3 (1 +- 4e-4): the bracket's keys share two leading
+    # bytes, whose radix passes the select skips
+    phase = torch.as_tensor(rng.uniform(0, 2 * np.pi, n), device=dev)
+    spec = torch.polar(
+        torch.as_tensor(1.3 * (1.0 + 1e-4 * noise[0]), device=dev),
+        phase.to(torch.float32))
+    _notch_case(spec, 1.00005)
+    spec = torch.complex(*torch.as_tensor(noise, device=dev))
+    spec[k7.notch_sample_positions(n).to(dev)] *= 1000.0
+    _notch_case(spec, route=1)
 
 
 def _resample_case(dev, fs_out):
@@ -333,13 +385,14 @@ def test_conditioner_wrappers_count_launches(dev):
     k7.fir_decim(x, np.ones(5, np.float32), 2)
     k7.pulse_blank(x, 4.0)
     k7.notch_mask(x, 8.0)
+    k7.notch_mask_(x.clone(), 8.0)
     k7.resample(x, 8e6, 4e6, k7.MMSE)
     k7.resample(x, 8e6, 4e6, k7.DIRECT)
     k7.fir_decim_plain(x, np.ones(5, np.float32), 2)
     k7.pulse_blank_plain(x, 4.0)
     assert {k: LAUNCHES[k] for k in ("fir_decim", "pulse_blank",
                                      "notch_mask", "resample")} \
-        == {"fir_decim": 1, "pulse_blank": 1, "notch_mask": 1, "resample": 2}
+        == {"fir_decim": 1, "pulse_blank": 1, "notch_mask": 2, "resample": 2}
 
 
 @pytest.mark.parametrize("n_taps", [4, 6])

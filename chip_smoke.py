@@ -10,6 +10,9 @@
    32 PRNs x 40 Doppler bins) holds each kernel against its plain PyTorch
    version on the same seeded inputs, and times kernel, plain version and
    (where one exists) a single PyTorch library call with CUDA events.
+   K2d's line (at every K2 shape) adds its second-peak device time, its
+   cluster (``cluster_size`` blocks a PRN, ``max_active_clusters``) and
+   ``floor_us``, the device time of an empty kernel launched as K2d is.
 4. Slice phase: builds the production GPS L1 C/A receiver through
    ``make_receiver`` from an INI with the factory defaults (4 Msps, 8
    channels, K = 20), runs it over a generated 12 s scene of 8 satellites
@@ -96,7 +99,8 @@ and cache the scenes the slices then load):
 11. High dynamics and the beamformer, right after step 6: K3-hd
    (``multicorr`` with code and carrier rates) at the L1 and E1 scan
    widths, 10 g and 1000 g, each prompt against the signal's coherent
-   sum and the kernel against its plain version (``hd_phase``); K7e
+   sum and the kernel against its plain version (``hd_phase``; each
+   shape's line carries its cluster, as K3's); K7e
    through ``BeamformerFilter.steered(...).apply`` on a seeded 8-antenna
    capture of 1 s at 4 Msps with a 20 dB jammer, the JAX test's gain and
    null bounds, then the kernel against its plain version and
@@ -652,6 +656,9 @@ def check_k2_engine(torch, np, eng, xs, variant):
         torch.cuda.synchronize()
         if not (torch.equal(sk[1], sp_[1]) and torch.equal(sk[2], sp_[2])):
             fail(f"acq_stats argmax differs (use_cfar={use_cfar})")
+        if not use_cfar and not torch.equal(sk[0], sp_[0]):
+            fail(f"acq_stats second-peak statistic ({variant}) is not its "
+                 "plain version to the bit")
         errs.append(float(torch.max(torch.abs(sk[0] - sp_[0]) / sp_[0])))
     entry("acq_stats", sk[0], sp_[0],
           time_ms(torch, lambda: acq.acq_stats(g2p, rmp, rap, 2,
@@ -664,7 +671,25 @@ def check_k2_engine(torch, np, eng, xs, variant):
               torch, lambda: acq.acq_stats(g2p, rmp, rap, 2,
                                            cfg.samples_per_chip, True),
               "stats_kernel"))
+    out[-1]["device_us_second_peak"] = kernel_device_us(
+        torch, lambda: acq.acq_stats(g2p, rmp, rap, 2, cfg.samples_per_chip,
+                                     False), "stats_kernel")
+    out[-1]["floor_us"] = stats_floor_us(torch, p, eff)
+    out[-1].update(acq.stats_cluster(eff, g2p.device))
     return out
+
+
+def stats_floor_us(torch, p, eff):
+    """The device us of an empty kernel launched as K2d is at [P, D, eff]
+    (``acq_stats_empty``: the same clusters of blocks): the practical
+    floor of a launch beside K2d's byte bound."""
+    from gnss_sdr_tpu_torch.kernels import build as kb
+
+    dev = torch.device("cuda")
+    f = kb.function("acq", "acq_stats_empty", [kb.I32, kb.I32, kb.VP])
+    return kernel_device_us(
+        torch, lambda: kb.check(kb.launch(f, dev, p, eff), "acq_stats_empty"),
+        "stats_empty_kernel")
 
 
 def kernel_phase(torch, np, prns):
@@ -695,7 +720,9 @@ def report(res):
                  if r.get("library_device_us") is not None else "")
               + (f", clusters of {r['cluster_size']} blocks, "
                  f"{r['max_active_clusters']} at once"
-                 if "cluster_size" in r else ""),
+                 if "cluster_size" in r else "")
+              + (f", empty-kernel floor {r['floor_us']:.2f} us"
+                 if r.get("floor_us") is not None else ""),
               file=sys.stderr, flush=True)
         if not r["rel_err"] <= r["tol"]:
             fail(f"{r['name']} ({r['variant']}) disagrees with its plain "
@@ -2645,7 +2672,9 @@ def hd_phase(torch, np, card):
             plain_ms=time_ms(torch, plain, 10), bound_ms=b, bound_by=by,
             library_ms=None, variant=variant,
             shape=f"C={c} T={t} L={args[11]} table={args[5].shape[1]} "
-            "float32 windows", card=card))
+            "float32 windows", card=card,
+            **k3.cluster(t, args[5].shape[1], args[11], args[0].dtype,
+                         args[0].device, hd=True)))
     for line in lines:
         same = [r for r in rec if r["variant"] == line["variant"]]
         line["rel_err"] = max(r["rel_err"] for r in same)

@@ -8,7 +8,8 @@ dwell (see :func:`pcps_dwell`):
 - :func:`acq_accum`: |IFFT|^2 on [offset, offset + eff) added into the
   dwell sum, with each row's peak and first argmax;
 - :func:`acq_stats`: per PRN the flat argmax and the CFAR or
-  first-vs-second-peak statistic.
+  first-vs-second-peak statistic (a cluster of blocks a PRN, see
+  :func:`stats_cluster`).
 
 Each takes its ``*_plain`` PyTorch version for a CPU tensor and launches
 its kernel for a CUDA tensor.
@@ -198,6 +199,16 @@ def acq_stats(grid, row_max, row_arg, num_dwells: int,
         return acq_stats_plain(grid, row_max, row_arg, num_dwells,
                                samples_per_chip, use_cfar)
     _cuda(grid, "acq_stats")
+    if grid.dtype != torch.float32 or grid.dim() != 3 \
+            or row_max.dtype != torch.float32 or row_arg.dtype != torch.int32 \
+            or row_max.shape != grid.shape[:2] \
+            or row_arg.shape != grid.shape[:2] \
+            or row_max.device != grid.device or row_arg.device != grid.device:
+        raise ValueError("acq_stats: float32 grid [P, D, eff] with float32 "
+                         "row_max and int32 row_arg [P, D] on its card")
+    # a row's base need not be 16-byte aligned: the kernel loads a head
+    # before its first aligned float4
+    grid = grid.contiguous()
     p, d, eff = grid.shape
     stat = torch.empty((p,), dtype=torch.float32, device=grid.device)
     i_dop = torch.empty((p,), dtype=torch.int32, device=grid.device)
@@ -214,6 +225,12 @@ def acq_stats(grid, row_max, row_arg, num_dwells: int,
     kb.check(err, "acq_stats")
     LAUNCHES["acq_stats"] += 1
     return stat, i_dop, i_time
+
+
+def stats_cluster(eff: int, device) -> dict:
+    """K2d's cluster on card ``device`` for rows of ``eff`` floats:
+    ``cluster_size`` (blocks a PRN) and ``max_active_clusters``."""
+    return kb.cluster_query("acq", "acq_stats_cluster", device, eff)
 
 
 def pcps_dwell(x, code_fft, dopplers, c0: float, offset: int, eff: int,

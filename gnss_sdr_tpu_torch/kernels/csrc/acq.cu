@@ -22,6 +22,7 @@
 // samples: a thread owns a pair of samples of one Doppler row, loads
 // that row's pair once and walks the P code spectra (at most a few MB,
 // held in L2), each pair moved as one 16-byte load or store.
+#include "cluster.cuh"
 #include "common.cuh"
 
 namespace {
@@ -128,7 +129,94 @@ accum_kernel(const float2* __restrict__ corr, int N, int offset, int eff,
   }
 }
 
-// one block per PRN
+// ---- (c2) the statistics: one thread-block cluster per PRN ----------
+//
+// The peak row is the argmax over the D row peaks of (c1), taken by every
+// warp with xor shuffles on (value, d) pairs under take_max's rule (the
+// smallest d wins a tie; with the row's first argmax that is
+// jnp.argmax's first flat index), so every thread holds it with no
+// barrier. The row the statistic reads (the opposite row for CFAR, the
+// peak row for the second peak) is cut over the cluster's S blocks
+// (stats_slices: 1 at L1, 4 at E1, 3 at E5a): a head of up to 3 floats
+// before its first 16-byte boundary (block 0), a body of 16-byte loads
+// split into S contiguous parts, each thread issuing its kStatsLoads
+// loads at once, a tail of up to 3 floats (block S - 1). Each block
+// reduces its part: the CFAR sum, or the maximum outside the circular
+// +-samples_per_chip exclusion around the peak (order-free, so equal to
+// the plain version's to the bit). The other blocks' threads 0 write
+// their parts into the leader's shared memory and arrive on its
+// transaction barrier, then exit (no cluster-wide barrier at the end);
+// the leader waits on it and adds the S sums in rank order (a fixed
+// order: deterministic) or takes their maximum.
+//
+// Bound: a launch reads D row peaks and one row (16-64 KB at the search
+// shapes, 0.04-0.5 us of bytes), so it costs its launch and two
+// dependent memory latencies (the row peaks, then the row): the design
+// keeps every thread's loads of the row in flight at once and leaves no
+// serial loop over rows or samples.
+
+// Floats of the row a block reads: 4 float4 loads a thread at 256
+// threads. A cluster of one block (L1) skips the exchange, which costs
+// more than its loads; halving the slice did not pay at E1 or E5a.
+constexpr int kStatsSlice = 4096;
+
+__host__ __device__ inline int stats_slices(int eff) {
+  const int s = (eff + kStatsSlice - 1) / kStatsSlice;
+  return s < 1 ? 1 : (s > kPortableCluster ? kPortableCluster : s);
+}
+
+// Loads a thread issues before it uses the first: a loop over rows or
+// floats that waited on each load in turn took one memory latency a step.
+constexpr int kStatsLoads = 4;
+
+// argmax of rm[0 .. D) over the warp, every lane holding the result
+__device__ __forceinline__ void warp_argmax(const float* __restrict__ rm,
+                                            int D, float& v, int& d) {
+  v = -CUDART_INF_F;
+  d = 0x7fffffff;
+  for (int i0 = threadIdx.x & 31; i0 < D; i0 += 32 * kStatsLoads) {
+    float x[kStatsLoads];
+#pragma unroll
+    for (int u = 0; u < kStatsLoads; ++u)
+      x[u] = i0 + 32 * u < D ? rm[i0 + 32 * u] : -CUDART_INF_F;
+#pragma unroll
+    for (int u = 0; u < kStatsLoads; ++u)
+      if (i0 + 32 * u < D) take_max(v, d, x[u], i0 + 32 * u);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float v2 = __shfl_xor_sync(0xffffffffu, v, off);
+    const int d2 = __shfl_xor_sync(0xffffffffu, d, off);
+    take_max(v, d, v2, d2);
+  }
+}
+
+// the block's maximum of m (valid in thread 0; every m >= 0)
+__device__ __forceinline__ float block_max(float m, float* scratch) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_warps = (blockDim.x + 31) >> 5;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+  if (lane == 0) scratch[warp] = m;
+  __syncthreads();
+  if (warp == 0) {
+    m = lane < n_warps ? scratch[lane] : 0.0f;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+  }
+  return m;
+}
+
+// x where it lies outside the exclusion zone around bt, else 0
+__device__ __forceinline__ float outside(float x, int i, int bt, int eff,
+                                         int spc) {
+  int dist = abs(i - bt);
+  dist = min(dist, eff - dist);
+  return dist > spc ? x : 0.0f;
+}
+
 __global__ void __launch_bounds__(kThreads)
 stats_kernel(const float* __restrict__ grid,
              const float* __restrict__ row_max,
@@ -136,63 +224,97 @@ stats_kernel(const float* __restrict__ grid,
              float num_dwells, int samples_per_chip, int use_cfar,
              float* __restrict__ stat, int* __restrict__ index_doppler,
              int* __restrict__ index_time) {
-  __shared__ float s_acc[32];
-  __shared__ int s_best;
-  const int p = blockIdx.x;
-  if (threadIdx.x == 0) {
-    // rows in order: the smallest Doppler index wins a tie, which with
-    // the row's first argmax is jnp.argmax's first flat index
-    int bd = 0;
-    float bv = row_max[(size_t)p * D];
-    for (int d = 1; d < D; ++d) {
-      const float v = row_max[(size_t)p * D + d];
-      if (v > bv) {
-        bv = v;
-        bd = d;
+  __shared__ float scratch[32];
+  __shared__ float part[kPortableCluster];   // the leader's
+  __shared__ uint64_t parts_in;   // the leader's: the S - 1 other parts
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = static_cast<int>(cluster.num_blocks());
+  const int r = static_cast<int>(cluster.block_rank());
+  if (r == 0 && threadIdx.x == 0 && S > 1) mbar_init(&parts_in, S - 1);
+  cluster_arrive_relaxed();   // this block runs (waited for below)
+  const int p = blockIdx.x / S;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  float peak;
+  int bd;
+  warp_argmax(row_max + (size_t)p * D, D, peak, bd);
+  const int bt = row_arg[(size_t)p * D + bd];
+  const float* row =
+      grid + ((size_t)p * D + (use_cfar ? (bd + D / 2) % D : bd)) * eff;
+  const int head = min(
+      eff, static_cast<int>((16 - (reinterpret_cast<uintptr_t>(row) & 15))
+                            & 15) >> 2);
+  const int n4 = (eff - head) >> 2;
+  const int tail0 = head + 4 * n4;   // the tail: tail0 .. eff - 1
+  const int per = (n4 + S - 1) / S;
+  const int q0 = min(n4, r * per), q1 = min(n4, q0 + per);
+  const float4* body = reinterpret_cast<const float4*>(row + head);
+  float v = 0.0f;
+  if (use_cfar) {
+    for (int b = q0 + tid; b < q1; b += kStatsLoads * nt) {
+      float4 x[kStatsLoads];
+#pragma unroll
+      for (int u = 0; u < kStatsLoads; ++u)
+        x[u] = b + u * nt < q1 ? body[b + u * nt] : make_float4(0, 0, 0, 0);
+#pragma unroll
+      for (int u = 0; u < kStatsLoads; ++u)
+        v = __fadd_rn(v, __fadd_rn(__fadd_rn(x[u].x, x[u].y),
+                                   __fadd_rn(x[u].z, x[u].w)));
+    }
+    if (r == 0 && tid < head) v = __fadd_rn(v, row[tid]);
+    if (r == S - 1 && tail0 + tid < eff) v = __fadd_rn(v, row[tail0 + tid]);
+    float acc[1] = {v};
+    block_sum<1>(acc, scratch);
+    v = acc[0];
+  } else {
+    const int spc = samples_per_chip;
+    for (int b = q0 + tid; b < q1; b += kStatsLoads * nt) {
+      float4 x[kStatsLoads];
+#pragma unroll
+      for (int u = 0; u < kStatsLoads; ++u)
+        x[u] = b + u * nt < q1 ? body[b + u * nt] : make_float4(0, 0, 0, 0);
+#pragma unroll
+      for (int u = 0; u < kStatsLoads; ++u) {
+        const int i = head + 4 * (b + u * nt);
+        v = fmaxf(v, fmaxf(fmaxf(outside(x[u].x, i, bt, eff, spc),
+                                 outside(x[u].y, i + 1, bt, eff, spc)),
+                           fmaxf(outside(x[u].z, i + 2, bt, eff, spc),
+                                 outside(x[u].w, i + 3, bt, eff, spc))));
       }
     }
-    s_best = bd;
+    if (r == 0 && tid < head)
+      v = fmaxf(v, outside(row[tid], tid, bt, eff, spc));
+    if (r == S - 1 && tail0 + tid < eff)
+      v = fmaxf(v, outside(row[tail0 + tid], tail0 + tid, bt, eff, spc));
+    v = block_max(v, scratch);
   }
-  __syncthreads();
-  const int bd = s_best;
-  const float peak = row_max[(size_t)p * D + bd];
-  const int bt = row_arg[(size_t)p * D + bd];
-  float v[1] = {0.0f};
+  float* lead_part = cluster.map_shared_rank(part, 0);
+  // every block of the cluster runs: the leader's memory and barrier
+  cluster_wait();
+  if (tid != 0) return;
+  if (r != 0) {   // the part into the leader's memory; it need not wait
+    lead_part[r] = v;
+    mbar_arrive_remote(&parts_in, 0);
+    return;
+  }
+  if (S > 1) mbar_wait(&parts_in, 0);
+  float tot = v;
+  for (int s = 1; s < S; ++s)
+    tot = use_cfar ? __fadd_rn(tot, part[s]) : fmaxf(tot, part[s]);
+  const float tiny = 1.17549435e-38f;
   if (use_cfar) {
-    const float* row = grid + ((size_t)p * D + (bd + D / 2) % D) * eff;
-    for (int i = threadIdx.x; i < eff; i += blockDim.x) v[0] += row[i];
-    block_sum<1>(v, s_acc);
+    const float input_power =
+        tot / static_cast<float>(eff) / 2.0f / num_dwells;
+    stat[p] = peak / fmaxf(input_power, tiny);
   } else {
-    const float* row = grid + ((size_t)p * D + bd) * eff;
-    float m = 0.0f;
-    for (int i = threadIdx.x; i < eff; i += blockDim.x) {
-      int dist = abs(i - bt);
-      dist = min(dist, eff - dist);
-      const float x = dist > samples_per_chip ? row[i] : 0.0f;
-      m = fmaxf(m, x);
-    }
-    // block max through the argmax helper (index unused)
-    __shared__ float sv[32];
-    __shared__ int si[32];
-    int dummy = 0;
-    block_argmax(m, dummy, sv, si);
-    v[0] = m;
+    stat[p] = peak / fmaxf(tot, tiny);
   }
-  if (threadIdx.x == 0) {
-    const float tiny = 1.17549435e-38f;
-    float s;
-    if (use_cfar) {
-      const float input_power = v[0] / static_cast<float>(eff) / 2.0f
-          / num_dwells;
-      s = peak / fmaxf(input_power, tiny);
-    } else {
-      s = peak / fmaxf(v[0], tiny);
-    }
-    stat[p] = s;
-    index_doppler[p] = bd;
-    index_time[p] = bt;
-  }
+  index_doppler[p] = bd;
+  index_time[p] = bt;
 }
+
+// An empty kernel launched as stats_kernel is: the launch's own device
+// time, the practical floor under K2d's.
+__global__ void __launch_bounds__(kThreads) stats_empty_kernel() {}
 
 inline unsigned blocks_for(size_t n) {
   return static_cast<unsigned>((n + kThreads - 1) / kThreads);
@@ -246,10 +368,25 @@ int acq_stats(const float* grid, const float* row_max, const int* row_arg,
               int P, int D, int eff, float num_dwells, int samples_per_chip,
               int use_cfar, float* stat, int* index_doppler,
               int* index_time, void* stream) {
-  stats_kernel<<<P, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      grid, row_max, row_arg, D, eff, num_dwells, samples_per_chip, use_cfar,
-      stat, index_doppler, index_time);
-  return static_cast<int>(cudaGetLastError());
+  if (P < 1 || D < 1 || eff < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return cluster_launch(stats_kernel, P, stats_slices(eff), kThreads, 0,
+                        static_cast<cudaStream_t>(stream), grid, row_max,
+                        row_arg, D, eff, num_dwells, samples_per_chip,
+                        use_cfar, stat, index_doppler, index_time);
+}
+
+// The empty kernel in acq_stats's launch configuration.
+int acq_stats_empty(int P, int eff, void* stream) {
+  return cluster_launch(stats_empty_kernel, P, stats_slices(eff), kThreads,
+                        0, static_cast<cudaStream_t>(stream));
+}
+
+// acq_stats's cluster for rows of eff floats: its size S and
+// cudaOccupancyMaxActiveClusters on the current card.
+int acq_stats_cluster(int eff, int* S, int* n_active) {
+  *S = stats_slices(eff);
+  return cluster_occupancy(stats_kernel, *S, kThreads, 0, n_active);
 }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
 // Thread-block clusters: the launch and occupancy helpers of the kernels
-// that spread one channel over a cluster of blocks (K3 in multicorr.cu,
-// K3-loop in scan_loop.cu, K1-loop and K1-seg in fast_loop.cu).
+// that spread one channel (or PRN) over a cluster of blocks (K3 and K3-hd
+// in multicorr.cu, K3-loop in scan_loop.cu, K1-loop and K1-seg in
+// fast_loop.cu, K2d in acq.cu).
 //
 // A cluster's blocks run at once on neighbouring SMs of one GPC and read
 // and write each other's shared memory (cooperative_groups::this_cluster,
@@ -12,6 +13,7 @@
 #pragma once
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include <utility>
 
@@ -56,6 +58,61 @@ cudaError_t cluster_config(K* kernel, int clusters, int S, int threads,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return cudaSuccess;
+}
+
+// cluster.sync() split in two: every thread arrives where its block
+// starts (relaxed: it publishes no memory) and waits before its block
+// first touches another block's shared memory, which is then known to
+// run; the latency of the barrier hides behind the work between.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
+// A transaction barrier (mbarrier) in shared memory that other blocks of
+// the cluster arrive on: one thread initialises it for ``count``
+// arrivals before its block's cluster_arrive_relaxed(), the fence making
+// the initialisation visible to the cluster.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile(
+      "mbarrier.init.shared::cta.b64 [%0], %1;\n"
+      "fence.mbarrier_init.release.cluster;\n" ::"r"(
+          static_cast<unsigned>(__cvta_generic_to_shared(bar))),
+      "r"(count)
+      : "memory");
+}
+
+// Arrive on the barrier at ``bar``'s offset in block ``rank``'s shared
+// memory, releasing this thread's earlier writes (into that block's
+// shared memory too) to the threads that wait on it.
+__device__ __forceinline__ void mbar_arrive_remote(uint64_t* bar,
+                                                   unsigned rank) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [remote];\n"
+      "}\n" ::"r"(static_cast<unsigned>(__cvta_generic_to_shared(bar))),
+      "r"(rank)
+      : "memory");
+}
+
+// Wait until phase ``parity`` of this block's barrier ``bar`` completes,
+// acquiring what the arrivals released.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 done, [%0], "
+      "%1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(static_cast<unsigned>(__cvta_generic_to_shared(bar))),
+      "r"(parity)
+      : "memory");
 }
 
 // Launch ``kernel(args...)`` as ``clusters`` clusters of S blocks; the

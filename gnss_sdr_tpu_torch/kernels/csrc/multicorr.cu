@@ -50,11 +50,15 @@
 // fma((0.5 rate) n, n, fma(step, n, -rem)), each formed in float64 and
 // rounded once to float32 (fma_f64 below). n n is never formed as an
 // integer square: JAX's n is float32, inexact in n n past n = 4096, and
-// at E1's three table entries a sample one ulp moves chip edges. The
-// layout: one block per channel, the table in
-// shared memory (opted in above 48 KB for E1's 49104 entries), one
-// sincosf a sample for all taps. Bound: the windows and tables once, a
-// few hundred kilobytes at C = 8; a launch costs its latency.
+// at E1's three table entries a sample one ulp moves chip edges. Bound:
+// the windows and tables once, a few hundred kilobytes at C = 8, so a
+// launch costs its latency and one slice's serial work. The layout: one
+// cluster of k3_slices(max_period) blocks a channel, cut as K3's; each
+// block stages only the table entries its slice reaches (~6.2 K of E1's
+// 49104 entries in a 32 KB buffer, so several blocks share an SM where
+// the whole 196 KB table took one), loads kHdBatch samples a thread at
+// once while the entries are copied, and shares one sincosf a sample
+// among all taps.
 #include "corr_common.cuh"
 
 namespace {
@@ -116,6 +120,59 @@ multicorr_kernel(const T* __restrict__ src_re, const T* __restrict__ src_im,
   }
 }
 
+// ---- K3-hd: one thread-block cluster per channel, as K3 -------------
+//
+// The window's valid prefix is cut into K3's slices (k3_slices,
+// k3_slice_len), one block each. A block stages only the table entries
+// its slice reaches: the code phase cp(n) = step n - rem + rate n^2 / 2
+// is a quadratic, so over the slice its extremes lie at the slice's ends
+// or at its vertex n* = -step / rate; that range, widened by the taps'
+// span and kHdMargin entries for the float32 rounding of the phase, is
+// copied (cp.async, wrapping mod code_len) into shared memory, indexed by
+// the unwrapped entry. A slice whose range exceeds the launch's
+// kHdStage-entry budget stages nothing, and a lookup outside the staged
+// range (none when the range holds) reads the table in device memory
+// (L2): one kernel, every index served. The slices' sums are added in
+// slice order by the cluster's leader, as K3's.
+constexpr int kHdStage = 8192;   // staged entries at most (32 KB)
+constexpr int kHdMargin = 2;
+constexpr int kHdBatch = 8;      // samples a thread loads at once
+
+// The unwrapped table entries [lo, lo + W) that the code index
+// floor(cp(n) + shift) reaches for n0 <= n < n1 (n1 > n0) and shifts in
+// [sh_lo, sh_hi], with cp(n) = cs n + mrc + hc n^2; false when they are
+// more than cap entries (or not finite).
+__host__ __device__ inline bool hd_reach(float cs, float mrc, float hc,
+                                         int n0, int n1, float sh_lo,
+                                         float sh_hi, int cap, int& lo,
+                                         int& W) {
+  const double a = n0, b = n1 - 1, s = cs, m = mrc, h = hc;
+  const double qa = (h * a + s) * a + m, qb = (h * b + s) * b + m;
+  double q_lo = fmin(qa, qb), q_hi = fmax(qa, qb);
+  if (h != 0.0) {
+    const double v = -s / (2.0 * h);
+    if (v > a && v < b) {
+      const double qv = (h * v + s) * v + m;
+      q_lo = fmin(q_lo, qv);
+      q_hi = fmax(q_hi, qv);
+    }
+  }
+  const double l = floor(q_lo + sh_lo) - kHdMargin;
+  const double w = floor(q_hi + sh_hi) + kHdMargin - l + 1.0;
+  if (!(w <= cap) || !(fabs(l) < 1e9)) return false;
+  lo = static_cast<int>(l);
+  W = static_cast<int>(w);
+  return true;
+}
+
+// a 4-byte asynchronous copy from global to shared memory
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   static_cast<unsigned int>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
 // a * b + c rounded once to float32 through float64 (the product of two
 // float32 values is exact there), as the plain version forms it
 __device__ __forceinline__ float fma_f64(float a, float b, float c) {
@@ -138,51 +195,134 @@ multicorr_hd_kernel(const T* __restrict__ src_re,
                     const float* __restrict__ rem_carr,
                     const float* __restrict__ carr_step,
                     const float* __restrict__ carr_rate, int max_period,
-                    float* __restrict__ out_re, float* __restrict__ out_im) {
+                    int cap, float* __restrict__ out_re,
+                    float* __restrict__ out_im) {
+  constexpr int NA = 2 * NT;
   extern __shared__ float s_code[];
-  __shared__ float scratch[2 * NT * 32];
-  const int c = blockIdx.x;
-  for (int i = threadIdx.x; i < code_len; i += blockDim.x)
-    s_code[i] = code[(size_t)c * code_len + i];
-  __syncthreads();
+  __shared__ float scratch[NA * 32];
+  __shared__ float part[kPortableCluster * NA];   // the leader's
+  cluster_arrive_relaxed();   // this block runs (waited for below)
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = static_cast<int>(cluster.num_blocks());
+  const int r = static_cast<int>(cluster.block_rank());
+  const int c = blockIdx.x / S;
+  const int tid = threadIdx.x, nt = blockDim.x;
 
   float sh[NT];
+  float sh_lo = shifts[0], sh_hi = shifts[0];
 #pragma unroll
-  for (int t = 0; t < NT; ++t) sh[t] = shifts[t];
+  for (int t = 0; t < NT; ++t) {
+    sh[t] = shifts[t];
+    sh_lo = fminf(sh_lo, sh[t]);
+    sh_hi = fmaxf(sh_hi, sh[t]);
+  }
   const float rc = rem_code[c], cs = code_step[c];
   const float hc = __fmul_rn(0.5f, code_rate[c]);
   const float rp = rem_carr[c], ps = carr_step[c];
   // no carrier rate: + 0 leaves the linear phase as it is
   const float hp = carr_rate ? __fmul_rn(0.5f, carr_rate[c]) : 0.0f;
   const float mrc = -rc;
+  const int ls = k3_slice_len(max_period, S);
   const int len = min(length[c], max_period);
+  const int n0 = r * ls, n1 = min(len, n0 + ls);
   const long long s0 = base + start[c];
-  float acc[2 * NT];
-#pragma unroll
-  for (int i = 0; i < 2 * NT; ++i) acc[i] = 0.0f;
-  for (int n = threadIdx.x; n < len; n += blockDim.x) {
-    const float fn = static_cast<float>(n);
-    const float phase = fma_f64(__fmul_rn(hp, fn), fn, fma_f64(ps, fn, rp));
-    float rr, ri;
-    derotate(to_f32(src_re[s0 + n]), to_f32(src_im[s0 + n]), phase, rr, ri);
-    const float cp = fma_f64(__fmul_rn(hc, fn), fn, fma_f64(cs, fn, mrc));
-#pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      int idx = static_cast<int>(floorf(__fadd_rn(cp, sh[t]))) % code_len;
-      if (idx < 0) idx += code_len;
-      const float q = s_code[idx];
-      acc[t] = __fmaf_rn(q, rr, acc[t]);
-      acc[NT + t] = __fmaf_rn(q, ri, acc[NT + t]);
+  const float* table = code + (size_t)c * code_len;
+
+  // the slice's table entries, copied while its first samples load
+  int lo = 0, W = 0;
+  if (n1 > n0 && !hd_reach(cs, mrc, hc, n0, n1, sh_lo, sh_hi, cap, lo, W))
+    W = 0;
+  if (W > 0) {
+    int first = lo % code_len;
+    if (first < 0) first += code_len;
+    for (int j = tid; j < W; j += nt) {
+      const int k = first + j;   // W <= cap <= code_len: one wrap at most
+      cp_async4(s_code + j, table + (k < code_len ? k : k - code_len));
     }
   }
-  block_sum<2 * NT>(acc, scratch);
-  if (threadIdx.x == 0) {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+  float acc[NA];
 #pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      out_re[c * NT + t] = acc[t];
-      out_im[c * NT + t] = acc[NT + t];
+  for (int i = 0; i < NA; ++i) acc[i] = 0.0f;
+  for (int b0 = n0; b0 < n1; b0 += kHdBatch * nt) {
+    float xr[kHdBatch], xi[kHdBatch];
+#pragma unroll
+    for (int u = 0; u < kHdBatch; ++u) {
+      const int n = b0 + u * nt + tid;
+      xr[u] = n < n1 ? to_f32(src_re[s0 + n]) : 0.0f;
+      xi[u] = n < n1 ? to_f32(src_im[s0 + n]) : 0.0f;
+    }
+    if (b0 == n0) {   // the staged entries, before the first lookup
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      __syncthreads();
+    }
+#pragma unroll
+    for (int u = 0; u < kHdBatch; ++u) {
+      const int n = b0 + u * nt + tid;
+      if (n >= n1) break;
+      const float fn = static_cast<float>(n);
+      const float phase =
+          fma_f64(__fmul_rn(hp, fn), fn, fma_f64(ps, fn, rp));
+      float rr, ri;
+      derotate(xr[u], xi[u], phase, rr, ri);
+      const float cp = fma_f64(__fmul_rn(hc, fn), fn, fma_f64(cs, fn, mrc));
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        const int iu = static_cast<int>(floorf(__fadd_rn(cp, sh[t])));
+        const unsigned j = static_cast<unsigned>(iu - lo);
+        float q;
+        if (j < static_cast<unsigned>(W)) {
+          q = s_code[j];
+        } else {
+          int idx = iu % code_len;
+          if (idx < 0) idx += code_len;
+          q = __ldg(table + idx);
+        }
+        acc[t] = __fmaf_rn(q, rr, acc[t]);
+        acc[NT + t] = __fmaf_rn(q, ri, acc[NT + t]);
+      }
     }
   }
+  block_sum<NA>(acc, scratch);
+  float* lead_part = cluster.map_shared_rank(part, 0);
+  cluster_wait();   // every block of the cluster runs: the leader's memory
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < NA; ++i) lead_part[r * NA + i] = acc[i];
+  }
+  cluster.sync();   // every slice's sums with the leader
+  if (r == 0 && tid == 0) {
+    float tot[NA];
+    slice_total<NA>(part, S, tot);
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      out_re[c * NT + t] = tot[t];
+      out_im[c * NT + t] = tot[NT + t];
+    }
+  }
+}
+
+template <typename T>
+using K3HdKernel = void (*)(const T*, const T*, long long, const int*,
+                            const int*, const float*, int, const float*,
+                            const float*, const float*, const float*,
+                            const float*, const float*, const float*, int,
+                            int, float*, float*);
+
+template <typename T>
+K3HdKernel<T> k3hd_kernel(int n_taps) {
+  switch (n_taps) {
+    case 1: return multicorr_hd_kernel<T, 1>;
+    case 3: return multicorr_hd_kernel<T, 3>;
+    case 5: return multicorr_hd_kernel<T, 5>;
+    default: return nullptr;
+  }
+}
+
+// the staged entries a block holds for tables of code_len entries
+inline int hd_cap(int code_len) {
+  return code_len < kHdStage ? code_len : kHdStage;
 }
 
 template <typename T>
@@ -193,31 +333,15 @@ int launch_hd(const T* re, const T* im, long long base, const int* start,
               const float* rem_carr, const float* carr_step,
               const float* carr_rate, int max_period, float* out_re,
               float* out_im, int n_channels, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * code_len;
-  const dim3 grid(n_channels), block(kThreads);
-#define K3HD_CASE(NT)                                                      \
-  case NT:                                                                 \
-    if (smem > kSmemNoOptIn) {                                             \
-      const cudaError_t e = cudaFuncSetAttribute(                          \
-          multicorr_hd_kernel<T, NT>,                                      \
-          cudaFuncAttributeMaxDynamicSharedMemorySize,                     \
-          static_cast<int>(smem));                                         \
-      if (e != cudaSuccess) return static_cast<int>(e);                    \
-    }                                                                      \
-    multicorr_hd_kernel<T, NT><<<grid, block, smem, stream>>>(             \
-        re, im, base, start, length, code, code_len, shifts, rem_code,     \
-        code_step, code_rate, rem_carr, carr_step, carr_rate, max_period,  \
-        out_re, out_im);                                                   \
-    break;
-  switch (n_taps) {
-    K3HD_CASE(1)
-    K3HD_CASE(3)
-    K3HD_CASE(5)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef K3HD_CASE
-  return static_cast<int>(cudaGetLastError());
+  const K3HdKernel<T> kern = k3hd_kernel<T>(n_taps);
+  if (kern == nullptr || max_period < 1 || code_len < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int cap = hd_cap(code_len);
+  return cluster_launch(kern, n_channels, k3_slices(max_period), kThreads,
+                        sizeof(float) * cap, stream, re, im, base, start,
+                        length, code, code_len, shifts, rem_code, code_step,
+                        code_rate, rem_carr, carr_step, carr_rate,
+                        max_period, cap, out_re, out_im);
 }
 
 template <typename T>
@@ -252,6 +376,16 @@ int launch(const T* re, const T* im, long long base, const int* start,
                         start, length, code, code_len, shifts, rem_code,
                         code_step, rem_carr, carr_step, max_period, n_extra,
                         out_re, out_im);
+}
+
+// cluster_occupancy of the int8 (i8) or float32 form of a kernel; an
+// unknown tap count (a null kernel) is refused
+template <typename K8, typename KF>
+int occupancy(K8* k8, KF* kf, int i8, int S, size_t smem, int* n_active) {
+  if (k8 == nullptr || kf == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return i8 ? cluster_occupancy(k8, S, kThreads, smem, n_active)
+            : cluster_occupancy(kf, S, kThreads, smem, n_active);
 }
 
 }  // namespace
@@ -322,17 +456,17 @@ int multicorr_hd_f32(const float* re, const float* im, long long base,
 // its size S (the window's slices) and cudaOccupancyMaxActiveClusters.
 int multicorr_cluster(int n_taps, int code_len, int max_period, int i8,
                       int* S, int* n_active) {
-  const int s = k3_slices(max_period);
-  *S = s;
-  const size_t smem = sizeof(float) * code_len;
-  if (i8) {
-    const K3Kernel<int8_t> kern = k3_kernel<int8_t>(n_taps);
-    if (kern == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    return cluster_occupancy(kern, s, kThreads, smem, n_active);
-  }
-  const K3Kernel<float> kern = k3_kernel<float>(n_taps);
-  if (kern == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return cluster_occupancy(kern, s, kThreads, smem, n_active);
+  *S = k3_slices(max_period);
+  return occupancy(k3_kernel<int8_t>(n_taps), k3_kernel<float>(n_taps), i8,
+                   *S, sizeof(float) * code_len, n_active);
+}
+
+// K3-hd's cluster on the current card, as multicorr_cluster's.
+int multicorr_hd_cluster(int n_taps, int code_len, int max_period, int i8,
+                         int* S, int* n_active) {
+  *S = k3_slices(max_period);
+  return occupancy(k3hd_kernel<int8_t>(n_taps), k3hd_kernel<float>(n_taps),
+                   i8, *S, sizeof(float) * hd_cap(code_len), n_active);
 }
 
 }  // extern "C"

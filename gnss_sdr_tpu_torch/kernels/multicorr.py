@@ -128,10 +128,11 @@ def multicorr(src_re, src_im, base: int, start, length, code_tables, shifts,
 
 
 def cluster(n_taps: int, code_len: int, max_period: int, src_dtype,
-            device) -> dict:
-    """K3's cluster on card ``device`` for ``n_taps`` taps, tables of
-    ``code_len`` entries and windows of ``max_period`` samples:
-    ``cluster_size`` (the window's slices, one block each) and
+            device, hd: bool = False) -> dict:
+    """K3's (``hd``: K3-hd's) cluster on card ``device`` for ``n_taps``
+    taps, tables of ``code_len`` entries and windows of ``max_period``
+    samples: ``cluster_size`` (the window's slices, one block each) and
     ``max_active_clusters`` (``kb.cluster_query``)."""
-    return kb.cluster_query("multicorr", "multicorr_cluster", device, n_taps,
-                            code_len, max_period, src_dtype == torch.int8)
+    return kb.cluster_query(
+        "multicorr", "multicorr_hd_cluster" if hd else "multicorr_cluster",
+        device, n_taps, code_len, max_period, src_dtype == torch.int8)

@@ -152,11 +152,55 @@ def _acq_product_case(dev, p, d, n, offset):
                        acq.acq_product_plain(spec, code))
 
 
+def _acq_stats_case(dev, d, eff, spc, offset):
+    """K2d on a seeded [4, D, eff] grid whose PRNs hold: equal maxima in
+    rows 2 and 5 (row 2 must win), a peak in the last row (the CFAR row
+    opposite it wraps to D / 2 - 1), a peak at sample 1 and one at
+    eff - 2 (the second-peak exclusion wraps past either end of the row),
+    each with a runner-up just outside and one just inside the
+    exclusion. ``offset`` floats into its storage the grid's base is not
+    16-byte aligned. Indices and the second-peak statistic equal to the
+    plain version's, CFAR within 1e-4."""
+    from gnss_sdr_tpu_torch.kernels import acq
+
+    rng = np.random.default_rng(d * eff + offset)
+    g = rng.exponential(1.0, size=(4, d, eff)).astype(np.float32)
+    for p, (row, t) in enumerate(((2, eff // 3), (d - 1, eff // 2),
+                                  (d // 3, 1), (d // 2, eff - 2))):
+        g[p, row, t] = 400.0
+        g[p, row, (t + spc + 1) % eff] = 50.0 + p
+        g[p, row, (t - spc) % eff] = 90.0
+    g[0, 5, eff // 4] = 400.0   # a tie: the smaller Doppler index wins
+    flat = torch.as_tensor(np.concatenate([np.zeros(offset, np.float32),
+                                           g.ravel()]), device=dev)
+    grid = flat[offset:].view(4, d, eff)
+    row_arg = torch.argmax(grid, dim=-1)
+    row_max = torch.gather(grid, -1, row_arg[..., None])[..., 0]
+    row_arg = row_arg.to(torch.int32)
+    for use_cfar in (True, False):
+        sk = acq.acq_stats(grid, row_max, row_arg, 2, spc, use_cfar)
+        sp = acq.acq_stats_plain(grid, row_max, row_arg, 2, spc, use_cfar)
+        assert torch.equal(sk[1], sp[1]) and torch.equal(sk[2], sp[2])
+        assert sk[1].tolist() == [2, d - 1, d // 3, d // 2]
+        if use_cfar:
+            torch.testing.assert_close(sk[0], sp[0], rtol=1e-4, atol=0)
+        else:
+            assert torch.equal(sk[0], sp[0])
+            torch.testing.assert_close(
+                sk[0], torch.tensor([8.0, 8.0, 8.0, 8.0], device=dev)
+                * 50.0 / torch.tensor([50.0, 51.0, 52.0, 53.0], device=dev),
+                rtol=1e-6, atol=0)
+
+
 def test_acq_kernels_match_plain(dev):
     """K2's four kernels against their plain versions, with the CFAR
     statistic and with the second-peak ratio; K2b alone to the bit at an
     odd N, at a P x D x N that is no multiple of a block's work, from a
-    misaligned spectrum and at the E5a search's 36 x 32 x 12000
+    misaligned spectrum and at the E5a search's 36 x 32 x 12000; K2d on
+    planted peaks (ties, wrapping rows and exclusions) at rows of 4000
+    and 12000 floats and of 1001 and 9001 (rows on every alignment, a
+    row cut over one block or three), from grids whose base is 0-3
+    floats past a 16-byte boundary
     (the cases run in one test: the tier-1 run's count of collected
     tests sets xdist's schedule of the memory-heavy JAX tests)."""
     for use_cfar in (True, False):
@@ -164,6 +208,10 @@ def test_acq_kernels_match_plain(dev):
     for p, d, n, offset in ((3, 5, 4001, 0), (5, 7, 778, 0), (4, 3, 1030, 1),
                             (36, 32, 12000, 0)):
         _acq_product_case(dev, p, d, n, offset)
+    for d, eff, spc, offset in ((40, 4000, 4, 0), (32, 12000, 12, 1),
+                                (9, 1001, 3, 2), (8, 1001, 3, 3),
+                                (7, 9001, 3, 1)):
+        _acq_stats_case(dev, d, eff, spc, offset)
 
 
 def test_kernel_wrappers_count_launches(dev):
@@ -459,8 +507,8 @@ def test_multicorr_kernel_on_e1_subchip_tables(dev, n_taps):
 
 def test_acq_kernels_at_e1_shapes(dev):
     """K2 on a 4 ms Galileo E1 dwell (16000 samples, 80 Doppler bins of
-    125 Hz, CBOC replicas): the grid, its row peaks and the statistics
-    agree with the plain versions."""
+    125 Hz, CBOC replicas): the grid, its row peaks and both statistics
+    agree with the plain versions (the second peak to the bit)."""
     from gnss_sdr_tpu_torch.acquisition.adapters import \
         make_galileo_e1_acquisition
     from gnss_sdr_tpu_torch.kernels import acq
@@ -483,10 +531,16 @@ def test_acq_kernels_at_e1_shapes(dev):
     gp, rmp, rap = acq.acq_accum_plain(corr, None, 0, n)
     torch.testing.assert_close(gk, gp, rtol=1e-6, atol=0)
     assert torch.equal(rak, rap)
-    sk = acq.acq_stats(gp, rmp, rap, 1, eng.cfg.samples_per_chip, True)
-    sp = acq.acq_stats_plain(gp, rmp, rap, 1, eng.cfg.samples_per_chip, True)
-    assert torch.equal(sk[1], sp[1]) and torch.equal(sk[2], sp[2])
-    torch.testing.assert_close(sk[0], sp[0], rtol=1e-4, atol=0)
+    for use_cfar in (True, False):
+        sk = acq.acq_stats(gp, rmp, rap, 1, eng.cfg.samples_per_chip,
+                           use_cfar)
+        sp = acq.acq_stats_plain(gp, rmp, rap, 1, eng.cfg.samples_per_chip,
+                                 use_cfar)
+        assert torch.equal(sk[1], sp[1]) and torch.equal(sk[2], sp[2])
+        if use_cfar:
+            torch.testing.assert_close(sk[0], sp[0], rtol=1e-4, atol=0)
+        else:
+            assert torch.equal(sk[0], sp[0])
 
 
 def test_fold_wipeoff_kernel_matches_plain(dev):
@@ -969,12 +1023,15 @@ def _fast_loop_segsum_case(dev, case, monkeypatch):
         assert float(((mag - ref).abs() / ref).max()) < 0.02
 
 
-def _hd_windows(dev, seed, length, table_len, accel_x10g, c=4):
+def _hd_windows(dev, seed, length, table_len, accel_x10g, c=4,
+                code_rate=None, rem=None, lengths=None):
     """K3-hd arguments at a tracking width (4 Msps): ``c`` float32 windows
     of one C/A-like table (1023 entries, 3 taps) or E1-like sub-chip
     table (49104 entries, 5 taps) read at the quadratic code phase of
     ``accel_x10g`` x 10 g under its quadratic carrier, plus noise; and
-    the code and carrier rates."""
+    the code and carrier rates. ``code_rate``, ``rem`` and ``lengths``
+    replace the code rate, the code phase remainders and the valid
+    lengths drawn from the dynamics and the seed."""
     fs = 4e6
     cspc = 1 if table_len == 1023 else 12
     rng = np.random.default_rng(seed)
@@ -982,10 +1039,12 @@ def _hd_windows(dev, seed, length, table_len, accel_x10g, c=4):
     code = np.sign(rng.standard_normal((c, table_len))).astype(np.float32)
     step = (np.full(c, 1.023e6 * cspc / fs)
             * (1.0 + rng.uniform(-3e-6, 3e-6, c))).astype(np.float32)
-    code_rate = np.full(c, f_dot * 1.023e6 / 1575.42e6 * cspc / fs ** 2,
-                        np.float32)
+    if code_rate is None:
+        code_rate = f_dot * 1.023e6 / 1575.42e6 * cspc / fs ** 2
+    code_rate = np.full(c, code_rate, np.float32)
     carr_rate = np.full(c, 2.0 * np.pi * f_dot / fs ** 2, np.float32)
-    rem = rng.uniform(0, 3, c).astype(np.float32)
+    rem = (rng.uniform(0, 3, c) if rem is None
+           else np.broadcast_to(rem, (c,))).astype(np.float32)
     rem_carr = rng.uniform(0, 6.28, c).astype(np.float32)
     carr_step = rng.uniform(-0.01, 0.01, c).astype(np.float32)
     n = np.arange(length, dtype=np.float64)
@@ -1004,9 +1063,11 @@ def _hd_windows(dev, seed, length, table_len, accel_x10g, c=4):
 
     planes = (t(x.real.astype(np.float32).ravel()),
               t(x.imag.astype(np.float32).ravel()))
+    if lengths is None:
+        lengths = rng.integers(length - 16, length + 1, c)
     args = planes + (
         0, t((np.arange(c) * length).astype(np.int32)),
-        t(rng.integers(length - 16, length + 1, c).astype(np.int32)),
+        t(np.asarray(lengths).astype(np.int32)),
         t(code), t(np.asarray(shifts, np.float32)), t(rem), t(step),
         t(rem_carr), t(carr_step), length, 2)
     return args, t(carr_rate), t(code_rate)
@@ -1018,20 +1079,35 @@ def test_multicorr_hd_kernel_matches_plain(dev):
     10 g and 1000 g: the same float32 code index and carrier phase
     (formed alike), the sums in another order: within 1e-5 of the prompt
     magnitude; one multicorr_hd launch; without a carrier rate the linear
-    carrier; a carrier rate alone refused on the card
+    carrier; a carrier rate alone refused on the card. Then the edges of
+    the kernel's per-slice table staging: a negative code rate whose
+    vertex (-step / rate, the code phase's turning point) falls inside
+    the window; code indices that wrap past the table's end inside one
+    slice; valid lengths that are no multiple of the 8 slices, or end
+    slices early (the slices past them sum nothing)
     (the cases run in one test: the tier-1 run's count of collected
     tests sets xdist's schedule of the memory-heavy JAX tests)."""
     for length, table_len in ((4016, 1023), (16016, 49104)):
         for accel_x10g in (1.0, 100.0):
             _hd_case(dev, length, table_len, accel_x10g)
+    l1_step, e1_step = 1.023e6 / 4e6, 12 * 1.023e6 / 4e6
+    # vertices at samples 2000 and 9001 (slices 3 and 4)
+    _hd_case(dev, 4016, 1023, 1.0, code_rate=-l1_step / 2000.0)
+    _hd_case(dev, 16016, 49104, 100.0, code_rate=-e1_step / 9001.0)
+    # the index passes the table's end at sample ~1262 (slice 2) / ~977
+    # (slice 0)
+    _hd_case(dev, 4016, 1023, 100.0, rem=-700.3)
+    _hd_case(dev, 16016, 49104, 1.0, rem=-(49104 - 3000.5))
+    _hd_case(dev, 4016, 1023, 1.0, lengths=[4013, 1500, 4011, 300])
+    _hd_case(dev, 16016, 49104, 1.0, lengths=[16009, 7001, 16015, 2003])
 
 
-def _hd_case(dev, length, table_len, accel_x10g):
+def _hd_case(dev, length, table_len, accel_x10g, **kw):
     from gnss_sdr_tpu_torch.kernels import LAUNCHES, reset_launches
     from gnss_sdr_tpu_torch.kernels import multicorr as k3
 
     args, carr_rate, code_rate = _hd_windows(dev, 8, length, table_len,
-                                             accel_x10g)
+                                             accel_x10g, **kw)
     for rates in ((carr_rate, code_rate), (None, code_rate)):
         reset_launches()
         got = k3.multicorr(*args, *rates)

@@ -13,6 +13,11 @@
    K2d's line (at every K2 shape) adds its second-peak device time, its
    cluster (``cluster_size`` blocks a PRN, ``max_active_clusters``) and
    ``floor_us``, the device time of an empty kernel launched as K2d is.
+   K2a's and K5a's lines (every K2 shape; the QuickSync searches') add
+   ``floor_us`` (an empty kernel launched alike), ``issue`` (the
+   issue-rate floor from the kernel's SASS, with its launch) and
+   ``host_us`` (the wrapper's host time a call by step), as K2b's line
+   adds its ``host_us``.
 4. Slice phase: builds the production GPS L1 C/A receiver through
    ``make_receiver`` from an INI with the factory defaults (4 Msps, 8
    channels, K = 20), runs it over a generated 12 s scene of 8 satellites
@@ -134,6 +139,7 @@ import functools
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -328,12 +334,20 @@ def host_us(torch, steps: dict, reps: int = 1000) -> dict:
     return out
 
 
-def k2b_host_split(torch, spec, code_fft) -> dict:
-    """K2b's wrapper host time a call (``call``) and its parts: the two
-    ``.contiguous()``, the output's allocation, the stream lookup, the
-    ctypes launch of the kernel alone, and ``other`` = the call less
-    those four parts (checks, pointers, counting); beside it the library
-    call's host time."""
+def wrapper_host_split(torch, call, parts: dict) -> dict:
+    """A wrapper's host time a call (``call``) and that of each of its
+    steps (``parts``: name -> the step alone), with ``other`` = the call
+    less the steps (checks, pointers, counting); ``host_us`` medians."""
+    r = host_us(torch, {"call": call, **parts})
+    torch.cuda.synchronize()
+    r["other"] = r["call"] - sum(r[k] for k in parts)
+    return r
+
+
+def product_parts(torch, spec, code_fft) -> dict:
+    """K2b's wrapper steps: the two ``.contiguous()``, the output's
+    allocation, the stream lookup and the ctypes launch of the kernel
+    alone."""
     from gnss_sdr_tpu_torch.kernels import acq
     from gnss_sdr_tpu_torch.kernels import build as kb
 
@@ -343,17 +357,201 @@ def k2b_host_split(torch, spec, code_fft) -> dict:
                                             kb.I32, kb.VP, kb.VP])
     args = (spec.data_ptr(), code_fft.data_ptr(), n, d, p, out.data_ptr(),
             kb.stream_ptr(spec.device))
-    r = host_us(torch, {
-        "call": lambda: acq.acq_product(spec, code_fft),
-        "contiguous": lambda: (spec.contiguous(), code_fft.contiguous()),
-        "empty": lambda: spec.new_empty((p, d, n)),
-        "stream": lambda: kb.stream_ptr(spec.device),
-        "launch": lambda: fn(*args),
-        "library": lambda: spec[None] * code_fft[:, None]})
-    torch.cuda.synchronize()
-    r["other"] = r["call"] - (r["contiguous"] + r["empty"] + r["stream"]
-                              + r["launch"])
-    return r
+    return {"contiguous": lambda: (spec.contiguous(), code_fft.contiguous()),
+            "empty": lambda: spec.new_empty((p, d, n)),
+            "stream": lambda: kb.stream_ptr(spec.device),
+            "launch": lambda: fn(*args)}
+
+
+def wipeoff_parts(torch, x, dop, c0: float, s=None) -> dict:
+    """The wipe-off wrappers' steps on card tensors ``x``, ``dop``: K2a's
+    (``acq_wipeoff``; ``s`` None) or K5a's (``fold_wipeoff`` by ``s``):
+    the two ``.contiguous()``, the output's allocation, the stream lookup
+    and the ctypes launch of the kernel alone."""
+    from gnss_sdr_tpu_torch.kernels import build as kb
+
+    n, d = x.shape[0], dop.shape[0]
+    nf = n // (s or 1)
+    out = x.new_empty((d, nf))
+    if s is None:
+        fn = kb.function("acq", "acq_wipeoff", [kb.VP, kb.VP, kb.F32, kb.I32,
+                                                kb.I32, kb.VP, kb.VP])
+        args = (x.data_ptr(), dop.data_ptr(), c0, n, d, out.data_ptr())
+    else:
+        fn = kb.function("acq_variants", "fold_wipeoff", [
+            kb.VP, kb.VP, kb.F32, kb.I32, kb.I32, kb.I32, kb.VP, kb.VP])
+        args = (x.data_ptr(), dop.data_ptr(), c0, s, nf, d, out.data_ptr())
+    args += (kb.stream_ptr(x.device),)
+    return {"contiguous": lambda: (x.contiguous(), dop.contiguous()),
+            "empty": lambda: x.new_empty((d, nf)),
+            "stream": lambda: kb.stream_ptr(x.device),
+            "launch": lambda: fn(*args)}
+
+
+def wipeoff_floor_us(torch, nf: int, d: int):
+    """The device us of an empty kernel launched as a wipe-off of ``d``
+    bins into rows of ``nf`` outputs is (``wipeoff_empty``: the same
+    grid and blocks, the pair layout): the practical floor of the launch
+    beside K2a's and K5a's bounds."""
+    from gnss_sdr_tpu_torch.kernels import build as kb
+
+    dev = torch.device("cuda")
+    f = kb.function("acq", "wipeoff_empty", [kb.I32, kb.I32, kb.I32, kb.VP])
+    return kernel_device_us(
+        torch, lambda: kb.check(kb.launch(f, dev, nf, d, 1), "wipeoff_empty"),
+        "wipeoff_empty_kernel")
+
+
+#: the Cody-Waite step of the accurate sincosf (x * 2/pi), which opens
+#: its fast path in the SASS; a range that holds local memory but not
+#: this constant is the routine's slow path (|x| >= 105615)
+SINCOS_OPEN = "0.63661974668502807617"
+
+
+def sass_functions(text: str) -> dict:
+    """{function: [(address, instruction)]} of ``cuobjdump -sass``'s
+    output ``text``."""
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)
+        if m and cur is not None:
+            cur.append((int(m.group(1), 16), m.group(2).strip()))
+    return funcs
+
+
+def sass_op(ins: str) -> str:
+    """The opcode of a SASS instruction, past its predicate."""
+    return ins.split()[1 if ins.startswith("@") else 0]
+
+
+def sass_hot_path(instrs, fall_levels: int) -> int:
+    """The instructions one thread issues walking a straight-line kernel
+    (no loop on its path) from its entry to its EXIT: a predicated EXIT
+    is not taken (the thread is in range); a conditional forward branch
+    over a range that holds local-memory accesses and no fast path of
+    sincosf skips the sincosf slow path and is taken; one over a range
+    that holds a sincosf skips a bin's work (nesting level 1: the unit's
+    second bin; level 2: that bin's own sincosf, skipped for a mirror
+    pair) and falls through up to level ``fall_levels``."""
+    at = {a: i for i, (a, _) in enumerate(instrs)}
+    ends = []           # ends of the enclosing bin ranges
+    i, n = 0, 0
+    while i < len(instrs):
+        addr, ins = instrs[i]
+        ends = [e for e in ends if e > addr]
+        pred = ins.startswith("@")
+        op = sass_op(ins)
+        if op.startswith("NOP"):
+            i += 1
+            continue
+        n += 1
+        if op == "EXIT" and not pred:
+            return n
+        if op == "BRA":
+            target = int(ins.split()[-1], 16)
+            if target <= addr:
+                if pred:
+                    i += 1
+                    continue
+                raise ValueError("sass_hot_path: a loop on the path")
+            if pred:
+                body = [t for _, t in instrs[i + 1:at[target]]]
+                local = any(sass_op(t).startswith(("STL", "LDL"))
+                            for t in body)
+                opens = any(SINCOS_OPEN in t for t in body)
+                if local and not opens:
+                    i = at[target]
+                    continue
+                if opens and len(ends) < fall_levels:
+                    ends.append(target)
+                    i += 1
+                    continue
+                if opens:
+                    i = at[target]
+                    continue
+                i += 1
+                continue
+            i = at[target]
+            continue
+        i += 1
+    raise ValueError("sass_hot_path: no EXIT")
+
+
+def wipeoff_issue_floor(torch, so: str, dop, s: int, n: int):
+    """The issue-rate floor of a wipe-off (K2a for ``s`` = 1, K5a's fold
+    by ``s``) of ``n`` samples on the grid ``dop`` (aligned tensors), from
+    the SASS of its instantiation in library ``so`` (``cuobjdump``): each
+    unit's threads (one a pair of folded outputs or one output, as
+    ``acq.wipeoff_launch`` says) issue the instructions of their unit's
+    path (``sass_hot_path``: one bin; two bins of a mirror pair, one
+    sincosf a sample; two bins, two), one warp instruction a clock on each
+    of an SM's four schedulers, every SM at the card's highest SM clock.
+    None for a fold that runs as a loop over segments (S other than 1,
+    2, 4)."""
+    import numpy as np
+
+    from gnss_sdr_tpu_torch.kernels import acq
+    from gnss_sdr_tpu_torch.kernels import build as kb
+
+    if s not in (1, 2, 4):
+        return None
+    nf = n // s
+    launch = acq.wipeoff_launch(nf, dop.shape[0], dop.device)
+    cuobjdump = os.path.join(os.path.dirname(kb.nvcc_path()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", so], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    sym = f"wipeoff_fold_kernelILi{s}ELb{int(launch['pairs'])}E"
+    fn = [v for k, v in sass_functions(text).items() if sym in k][0]
+    per_thread = {kind: sass_hot_path(fn, lv) for kind, lv in
+                  (("one_bin", 0), ("mirror_pair", 1), ("two_bins", 2))}
+    f = dop.cpu().numpy().view(np.uint32)
+    d = f.shape[0]
+    kinds = []
+    for u in range(d // 2 + 1):
+        v = d - u
+        if not (u > 0 and v > u):
+            kinds.append("one_bin")
+        else:
+            kinds.append("mirror_pair" if f[v] == f[u] ^ 0x80000000
+                         else "two_bins")
+    per_row = nf // 2 if launch["pairs"] else nf
+    warp_instr = (per_row + 31) // 32 * sum(per_thread[k] for k in kinds)
+    sms = torch.cuda.get_device_properties(dop.device).multi_processor_count
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0])
+    return dict(issue_floor_us=warp_instr / (4 * sms * mhz),
+                warp_instructions=warp_instr, per_thread=per_thread,
+                units={k: kinds.count(k) for k in sorted(set(kinds))},
+                sm_clock_mhz=mhz, sms=sms, **launch)
+
+
+def wipeoff_extras(torch, x, dop, c0: float, s=None) -> dict:
+    """Beside K2a's (``s`` None) or K5a's (fold ``s``) line: the
+    empty-kernel floor (``floor_us``), the issue-rate floor from the SASS
+    with the launch it counts (``issue``) and the wrapper's host time a
+    call by step (``host_us``)."""
+    from gnss_sdr_tpu_torch.kernels import acq
+    from gnss_sdr_tpu_torch.kernels import acq_variants as k5
+    from gnss_sdr_tpu_torch.kernels import build as kb
+
+    n, d = x.shape[0], dop.shape[0]
+    if s is None:
+        def call():
+            return acq.acq_wipeoff(x, dop, c0)
+    else:
+        def call():
+            return k5.fold_wipeoff(x, dop, c0, s)
+    so = kb.load("acq" if s is None else "acq_variants")._name
+    return dict(floor_us=wipeoff_floor_us(torch, n // (s or 1), d),
+                issue=wipeoff_issue_floor(torch, so, dop, s or 1, n),
+                host_us=wrapper_host_split(torch, call, wipeoff_parts(
+                    torch, x, dop, c0, s)))
 
 
 def rel_err(torch, got, want) -> float:
@@ -587,12 +785,12 @@ def check_k2_engine(torch, np, eng, xs, variant):
 
     def entry(name, got, want, ms, plain_ms, nb, no, library_ms=None,
               err=None, replaces="gnss_sdr_tpu/acquisition/pcps.py:157",
-              device_us=None):
+              device_us=None, source="acq.cu"):
         b, by = bound_ms(nb, no)
         e = rel_err(torch, got, want) if err is None else err
         out.append(dict(
             name=name, route="cuda",
-            source="gnss_sdr_tpu_torch/kernels/csrc/acq.cu",
+            source=f"gnss_sdr_tpu_torch/kernels/csrc/{source}",
             replaces=replaces,
             max_abs_err=float(torch.max(torch.abs(got - want))),
             rel_err=e, tol=TOL[name], ms=ms, device_us=device_us,
@@ -608,7 +806,8 @@ def check_k2_engine(torch, np, eng, xs, variant):
           n * 8 + d * 4 + d * n * 8, d * n * 8,
           device_us=kernel_device_us(
               torch, lambda: acq.acq_wipeoff(xs[0], dop, c0),
-              "wipeoff_kernel"))
+              "wipeoff_fold_kernel<1,"), source="wipeoff.cuh")
+    out[-1].update(wipeoff_extras(torch, xs[0], dop, c0, None))
     spec = torch.fft.fft(wp, dim=-1)
     pk = acq.acq_product(spec, code_fft)
     pp = acq.acq_product_plain(spec, code_fft)
@@ -623,7 +822,10 @@ def check_k2_engine(torch, np, eng, xs, variant):
           device_us=kernel_device_us(
               torch, lambda: acq.acq_product(spec, code_fft),
               "product_kernel"))
-    out[-1]["host_us"] = k2b_host_split(torch, spec, code_fft)
+    out[-1]["host_us"] = dict(
+        wrapper_host_split(torch, lambda: acq.acq_product(spec, code_fft),
+                           product_parts(torch, spec, code_fft)),
+        **host_us(torch, {"library": lambda: spec[None] * code_fft[:, None]}))
     out[-1].update(library_device(torch,
                                   lambda: spec[None] * code_fft[:, None]))
     corrs = []
@@ -722,7 +924,9 @@ def report(res):
                  f"{r['max_active_clusters']} at once"
                  if "cluster_size" in r else "")
               + (f", empty-kernel floor {r['floor_us']:.2f} us"
-                 if r.get("floor_us") is not None else ""),
+                 if r.get("floor_us") is not None else "")
+              + (f", issue-rate floor {r['issue']['issue_floor_us']:.2f} us"
+                 if r.get("issue") else ""),
               file=sys.stderr, flush=True)
         if not r["rel_err"] <= r["tol"]:
             fail(f"{r['name']} ({r['variant']}) disagrees with its plain "
@@ -2870,7 +3074,7 @@ def check_k5a(torch, np, eng, x, variant):
     b, by = bound_ms(n * 8 + d * 4 + d * (n // s) * 8, d * n * 8)
     return dict(
         name="fold_wipeoff", route="cuda",
-        source="gnss_sdr_tpu_torch/kernels/csrc/acq_variants.cu",
+        source="gnss_sdr_tpu_torch/kernels/csrc/wipeoff.cuh",
         replaces="gnss_sdr_tpu/acquisition/variants.py:34",
         max_abs_err=float(torch.max(torch.abs(got - want))),
         rel_err=rel_err(torch, torch.view_as_real(got),
@@ -2879,12 +3083,13 @@ def check_k5a(torch, np, eng, x, variant):
         ms=time_ms(torch, lambda: k5.fold_wipeoff(xs, dop, c0, s)),
         device_us=kernel_device_us(
             torch, lambda: k5.fold_wipeoff(xs, dop, c0, s),
-            "fold_wipeoff_kernel"),
+            "wipeoff_fold_kernel<"),
         event_us=event_us(torch, lambda: k5.fold_wipeoff(xs, dop, c0, s)),
         plain_ms=time_ms(torch, lambda: k5.fold_wipeoff_plain(xs, dop, c0,
                                                               s), 10),
         bound_ms=b, bound_by=by, library_ms=None, variant=variant,
-        shape=f"P={p} D={d} N={n} S={s}")
+        shape=f"P={p} D={d} N={n} S={s}",
+        **wipeoff_extras(torch, xs, dop, c0, s))
 
 
 def check_k5b(torch, np, eng, x):

@@ -3,7 +3,8 @@
 Four kernels of ``csrc/acq.cu`` surround the two cuFFT transforms of one
 dwell (see :func:`pcps_dwell`):
 
-- :func:`acq_wipeoff`: x[n] e^{j c0 f_d n} for every Doppler bin, [D, N];
+- :func:`acq_wipeoff`: x[n] e^{j c0 f_d n} for every Doppler bin, [D, N]
+  (the S = 1 instance of ``csrc/wipeoff.cuh``, K5a's fold);
 - :func:`acq_product`: spectrum x conj(code spectrum), [P, D, N];
 - :func:`acq_accum`: |IFFT|^2 on [offset, offset + eff) added into the
   dwell sum, with each row's peak and first argmax;
@@ -17,6 +18,7 @@ its kernel for a CUDA tensor.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import numpy as np
@@ -116,17 +118,27 @@ def _cuda(x, what):
         raise ValueError(f"{what}: unsupported device {x.device}")
 
 
+def wipeoff_inputs(x, dopplers, what: str):
+    """The card tensors of a wipe-off (K2a, K5a): x [N] complex64 and
+    dopplers [D] float32 on one card, made contiguous; raises on anything
+    else."""
+    if not x.is_cuda:
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    if x.dtype != torch.complex64 or dopplers.dtype != torch.float32 \
+            or x.dim() != 1 or dopplers.dim() != 1 \
+            or dopplers.get_device() != x.get_device():
+        raise ValueError(f"{what}: complex64 x [N] and float32 dopplers [D] "
+                         "on one card expected")
+    return x.contiguous(), dopplers.contiguous()
+
+
 def acq_wipeoff(x, dopplers, c0: float):
     """[D, N] complex64 Doppler-wiped copies of x [N] complex64."""
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return acq_wipeoff_plain(x, dopplers, c0)
-    _cuda(x, "acq_wipeoff")
-    if x.dtype != torch.complex64 or dopplers.dtype != torch.float32:
-        raise ValueError("acq_wipeoff: complex64 x and float32 dopplers")
-    x = x.contiguous()
-    dopplers = dopplers.contiguous()
+    x, dopplers = wipeoff_inputs(x, dopplers, "acq_wipeoff")
     n, d = x.shape[0], dopplers.shape[0]
-    out = torch.empty((d, n), dtype=torch.complex64, device=x.device)
+    out = x.new_empty((d, n))
     fn = _fn("acq_wipeoff", [kb.VP, kb.VP, kb.F32, kb.I32, kb.I32, kb.VP,
                            kb.VP])
     err = kb.launch(fn, x.device, x.data_ptr(), dopplers.data_ptr(), c0, n, d,
@@ -225,6 +237,22 @@ def acq_stats(grid, row_max, row_arg, num_dwells: int,
     kb.check(err, "acq_stats")
     LAUNCHES["acq_stats"] += 1
     return stat, i_dop, i_time
+
+
+def wipeoff_launch(nf: int, d: int, device, aligned: bool = True) -> dict:
+    """The launch of a wipe-off (K2a, K5a) of ``d`` bins into rows of
+    ``nf`` outputs on card ``device`` (``csrc/wipeoff.cuh::wipeoff_shape``;
+    ``aligned``: x and the output 16-byte aligned): ``grid`` (columns,
+    rows of units), ``threads`` a block and ``pairs`` (a pair of outputs a
+    thread)."""
+    shape = (kb.I32 * 4)()
+    f = _fn("wipeoff_launch_shape", [kb.I32, kb.I32, kb.I32,
+                                     ctypes.POINTER(kb.I32)])
+    with torch.cuda.device(device):
+        kb.check(f(int(nf), int(d), int(aligned), shape),
+                 "wipeoff_launch_shape")
+    return dict(grid=(shape[0], shape[1]), threads=shape[2],
+                pairs=bool(shape[3]))
 
 
 def stats_cluster(eff: int, device) -> dict:

@@ -5,7 +5,8 @@ kernels (``kernels/acq.py``):
 
 - :func:`fold_wipeoff` (K5a): for every Doppler bin, the carrier wiped
   off at the absolute sample index and the S segments of the buffer
-  summed, [D, N/S] (the prologue of QuickSync's ``_folded_grid``);
+  summed, [D, N/S] (the prologue of QuickSync's ``_folded_grid``; the
+  body of ``csrc/wipeoff.cuh``, whose S = 1 instance is K2's wipe-off);
 - :func:`cccwsr_combine` (K5b): ``max(|yb + yc|^2, |yb - yc|^2)`` of the
   E1-B and E1-C correlation grids with each row's peak and first argmax
   (the epilogue of ``_cccwsr_grid``).
@@ -22,7 +23,7 @@ import torch
 from gnss_sdr_tpu_torch.kernels import LAUNCHES
 from gnss_sdr_tpu_torch.kernels import build as kb
 from gnss_sdr_tpu_torch.kernels.acq import (acq_accum, acq_product,
-                                            acq_wipeoff)
+                                            acq_wipeoff, wipeoff_inputs)
 
 
 # ---- plain versions ----------------------------------------------------------
@@ -61,17 +62,13 @@ def fold_wipeoff(x, dopplers, c0: float, s: int):
     """[D, N/S] complex64: x [N] complex64 wiped off at every Doppler bin
     ``dopplers`` [D] float32 (phase ``c0 * f_d * n``) and folded over its
     ``s`` segments."""
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return fold_wipeoff_plain(x, dopplers, c0, s)
-    if x.device.type != "cuda":
-        raise ValueError(f"fold_wipeoff: unsupported device {x.device}")
-    if x.dtype != torch.complex64 or dopplers.dtype != torch.float32:
-        raise ValueError("fold_wipeoff: complex64 x and float32 dopplers")
-    if x.dim() != 1 or x.shape[0] % s:
+    x, dopplers = wipeoff_inputs(x, dopplers, "fold_wipeoff")
+    if s < 1 or x.shape[0] % s:
         raise ValueError("fold_wipeoff: the fold must divide the buffer")
-    x, dopplers = x.contiguous(), dopplers.contiguous()
     nf, d = x.shape[0] // s, dopplers.shape[0]
-    out = torch.empty((d, nf), dtype=torch.complex64, device=x.device)
+    out = x.new_empty((d, nf))
     fn = kb.function("acq_variants", "fold_wipeoff", [
         kb.VP, kb.VP, kb.F32, kb.I32, kb.I32, kb.I32, kb.VP, kb.VP])
     err = kb.launch(fn, x.device, x.data_ptr(), dopplers.data_ptr(), c0,

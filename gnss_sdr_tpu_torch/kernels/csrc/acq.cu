@@ -5,6 +5,7 @@
 // PcpsAcquisition.search. The transforms are torch.fft (cuFFT) calls in
 // the wrapper; these kernels are the parts around them:
 //   (a) acq_wipeoff: x[n] e^{j c0 f_d n} for every Doppler bin -> [D, N]
+//       (wipeoff.cuh's body with S = 1, shared with K5a's fold)
 //   (b) acq_product: spectrum[d] * conj_code_spectrum[p] -> [P, D, N]
 //   (c1) acq_accum: |IFFT|^2 on [offset, offset + eff) added into the
 //        dwell sum grid [P, D, eff], with each row's peak and first argmax
@@ -18,31 +19,18 @@
 // flops, so every part is bound by bytes. Design: each kernel touches
 // each element once, the |.|^2 grid is written once per dwell with its
 // row peaks in the same pass, and the statistics read only the two rows
-// they need. The product (b) writes P x D x N and reads D x N + P x N
-// samples: a thread owns a pair of samples of one Doppler row, loads
-// that row's pair once and walks the P code spectra (at most a few MB,
-// held in L2), each pair moved as one 16-byte load or store.
+// they need. The wipe-off (a) is described in wipeoff.cuh. The product
+// (b) writes P x D x N and reads D x N + P x N samples: a thread owns a
+// pair of samples of one Doppler row, loads that row's pair once and
+// walks the P code spectra (at most a few MB, held in L2), each pair
+// moved as one 16-byte load or store.
 #include "cluster.cuh"
 #include "common.cuh"
+#include "wipeoff.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-
-__global__ void wipeoff_kernel(const float2* __restrict__ x,
-                               const float* __restrict__ dopplers, float c0,
-                               int N, int D, float2* __restrict__ out) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (size_t)D * N) return;
-  const int d = static_cast<int>(i / N);
-  const int n = static_cast<int>(i % N);
-  const float ph = __fmul_rn(__fmul_rn(c0, dopplers[d]), static_cast<float>(n));
-  float s, c;
-  sincosf(ph, &s, &c);
-  const float2 v = x[n];
-  out[i] = make_float2(__fsub_rn(__fmul_rn(v.x, c), __fmul_rn(v.y, s)),
-                       __fadd_rn(__fmul_rn(v.x, s), __fmul_rn(v.y, c)));
-}
 
 // out[p, d, n] = spec[d, n] * code[p, n] with the plain version's
 // roundings (two products, then their difference or sum; no contraction).
@@ -316,21 +304,41 @@ stats_kernel(const float* __restrict__ grid,
 // time, the practical floor under K2d's.
 __global__ void __launch_bounds__(kThreads) stats_empty_kernel() {}
 
-inline unsigned blocks_for(size_t n) {
-  return static_cast<unsigned>((n + kThreads - 1) / kThreads);
-}
+// An empty kernel launched as wipeoff_fold_kernel is: the launch's own
+// device time, the practical floor under K2a's and K5a's.
+__global__ void __launch_bounds__(kWipeThreads) wipeoff_empty_kernel() {}
 
 }  // namespace
 
 extern "C" {
 
+// (a) the S = 1 instance of wipeoff.cuh's body.
 int acq_wipeoff(const float* x, const float* dopplers, float c0, int N,
                 int D, float* out, void* stream) {
-  wipeoff_kernel<<<blocks_for((size_t)D * N), kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const float2*>(x), dopplers, c0, N, D,
-      reinterpret_cast<float2*>(out));
+  return wipeoff_fold_launch<1>(x, dopplers, c0, 1, N, D, out, stream);
+}
+
+// The empty kernel in the launch configuration of a wipe-off (acq_wipeoff
+// or fold_wipeoff) of D bins into rows of NF outputs (``aligned``: x and
+// the output 16-byte aligned, as wipeoff_shape takes it).
+int wipeoff_empty(int NF, int D, int aligned, void* stream) {
+  if (NF < 1 || D < 1 || D / 2 + 1 > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const WipeoffShape L = wipeoff_shape(aligned != 0, NF, D, wipeoff_sms());
+  wipeoff_empty_kernel<<<L.grid, kWipeThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
+}
+
+// That launch configuration on the current card: shape = {grid columns,
+// grid rows, threads a block, 1 if a thread takes a pair of outputs}.
+int wipeoff_launch_shape(int NF, int D, int aligned, int* shape) {
+  const WipeoffShape L = wipeoff_shape(aligned != 0, NF, D, wipeoff_sms());
+  shape[0] = static_cast<int>(L.grid.x);
+  shape[1] = static_cast<int>(L.grid.y);
+  shape[2] = kWipeThreads;
+  shape[3] = L.pairs ? 1 : 0;
+  return 0;
 }
 
 // (b) on pairs of samples when N is even and spec, code and out are

@@ -14,50 +14,20 @@
 //       max(|yb + yc|^2, |yb - yc|^2) [P, D, N] with each row's peak and
 //       first argmax, the inputs of K2's acq_stats.
 //
-// Bound: both are a few flops per element of large grids (E1: 36 PRNs x
-// 80 bins x 16000 samples, 368 MB per complex grid), so bytes bound them.
-// Design: (a) reads the sample buffer once per bin from L2 and writes the
-// folded bin once, never the unfolded [D, N] product; (b) reads the two
-// complex grids once and writes the real grid once with its row peaks in
-// the same pass. The phase is formed as K2's wipe-off forms it (c0 f_d
-// first, then times n, each product rounded), the sin/cos is the accurate
-// sincosf (phases reach ~125 rad at 4 ms of E1), the segments are summed
-// in order and every product and sum is explicitly rounded (no FMA
-// contraction), so both equal their plain versions to the bit.
+// (a) is the body of wipeoff.cuh, shared with K2's wipe-off (its S = 1
+// instance): see there for its bound and design. It writes the folded
+// bins once, never the unfolded [D, N] product.
+// (b) is a few flops per element of large grids (E1: 36 PRNs x 80 bins x
+// 16000 samples, 368 MB per complex grid), so bytes bound it: it reads
+// the two complex grids once and writes the real grid once with its row
+// peaks in the same pass, every product and sum explicitly rounded (no
+// FMA contraction), so it equals its plain version to the bit.
 #include "common.cuh"
+#include "wipeoff.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-
-__global__ void fold_wipeoff_kernel(const float2* __restrict__ x,
-                                    const float* __restrict__ dopplers,
-                                    float c0, int S, int NF, int D,
-                                    float2* __restrict__ out) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (size_t)D * NF) return;
-  const int d = static_cast<int>(i / NF);
-  const int m = static_cast<int>(i % NF);
-  const float w = __fmul_rn(c0, dopplers[d]);
-  float acc_re = 0.0f, acc_im = 0.0f;
-  for (int s = 0; s < S; ++s) {
-    const int n = s * NF + m;
-    const float ph = __fmul_rn(w, static_cast<float>(n));
-    float sn, cs;
-    sincosf(ph, &sn, &cs);
-    const float2 v = x[n];
-    const float re = __fsub_rn(__fmul_rn(v.x, cs), __fmul_rn(v.y, sn));
-    const float im = __fadd_rn(__fmul_rn(v.x, sn), __fmul_rn(v.y, cs));
-    if (s == 0) {
-      acc_re = re;
-      acc_im = im;
-    } else {
-      acc_re = __fadd_rn(acc_re, re);
-      acc_im = __fadd_rn(acc_im, im);
-    }
-  }
-  out[i] = make_float2(acc_re, acc_im);
-}
 
 __device__ __forceinline__ float mag2(float re, float im) {
   return __fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im));
@@ -92,21 +62,24 @@ cccwsr_combine_kernel(const float2* __restrict__ yb,
   }
 }
 
-inline unsigned blocks_for(size_t n) {
-  return static_cast<unsigned>((n + kThreads - 1) / kThreads);
-}
-
 }  // namespace
 
 extern "C" {
 
+// (a) wipeoff.cuh's body: S = 1 (K2a's instance), 2 and 4 unrolled with
+// the segments' samples in registers, any other S as a loop.
 int fold_wipeoff(const float* x, const float* dopplers, float c0, int S,
                  int NF, int D, float* out, void* stream) {
-  fold_wipeoff_kernel<<<blocks_for((size_t)D * NF), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const float2*>(x), dopplers, c0, S, NF, D,
-      reinterpret_cast<float2*>(out));
-  return static_cast<int>(cudaGetLastError());
+  switch (S) {
+    case 1:
+      return wipeoff_fold_launch<1>(x, dopplers, c0, S, NF, D, out, stream);
+    case 2:
+      return wipeoff_fold_launch<2>(x, dopplers, c0, S, NF, D, out, stream);
+    case 4:
+      return wipeoff_fold_launch<4>(x, dopplers, c0, S, NF, D, out, stream);
+    default:
+      return wipeoff_fold_launch<0>(x, dopplers, c0, S, NF, D, out, stream);
+  }
 }
 
 int cccwsr_combine(const float* yb, const float* yc, int rows, int N,

@@ -117,8 +117,8 @@ def _acq_case(dev, use_cfar):
     dop = torch.as_tensor(np.linspace(-3000, 3000, d).astype(np.float32),
                           device=dev)
     c0 = acq.wipeoff_scale(2.5e6)
-    wk, wp = acq.acq_wipeoff(x, dop, c0), acq.acq_wipeoff_plain(x, dop, c0)
-    torch.testing.assert_close(wk, wp, rtol=1e-5, atol=1e-5)
+    wp = acq.acq_wipeoff_plain(x, dop, c0)
+    _wipeoff_case(x, dop, c0)
     pk, pp = acq.acq_product(wp, code), acq.acq_product_plain(wp, code)
     assert torch.equal(pk, pp)
     grid_k = grid_p = None
@@ -131,6 +131,43 @@ def _acq_case(dev, use_cfar):
     sp = acq.acq_stats_plain(grid_p, rmp, rap, 2, 2, use_cfar)
     assert torch.equal(sk[1], sp[1]) and torch.equal(sk[2], sp[2])
     torch.testing.assert_close(sk[0], sp[0], rtol=1e-4, atol=0)
+
+
+def _wipeoff_case(x, dop, c0):
+    """K2a against its plain version; each row equal to the bit to a
+    launch of its bin alone (a grid's mirror bins share one sincosf, so
+    this holds cos even and sin odd to the bit at every phase of the
+    grid); K5a at S = 1 equal to K2a to the bit (one body)."""
+    from gnss_sdr_tpu_torch.kernels import acq
+    from gnss_sdr_tpu_torch.kernels import acq_variants as k5
+
+    got = acq.acq_wipeoff(x, dop, c0)
+    torch.testing.assert_close(got, acq.acq_wipeoff_plain(x, dop, c0),
+                               rtol=1e-5, atol=1e-5)
+    for d in range(dop.shape[0]):
+        assert torch.equal(got[d], acq.acq_wipeoff(x, dop[d:d + 1], c0)[0])
+    assert torch.equal(k5.fold_wipeoff(x, dop, c0, 1), got)
+
+
+def _wipeoff_grids_case(dev):
+    """K2a (``_wipeoff_case``) on the L1 search's grid (-5000 ... 4750 Hz,
+    every bin but the first paired with its negation) at an odd N (one
+    output a thread), at N = 4000 from a base 8 bytes past a 16-byte
+    boundary (one output a thread), on a one-bin refine grid and on a
+    grid off zero (no mirror pair)."""
+    from gnss_sdr_tpu_torch.kernels import acq
+
+    rng = np.random.default_rng(14)
+    buf = torch.as_tensor((rng.standard_normal(4002)
+                           + 1j * rng.standard_normal(4002))
+                          .astype(np.complex64), device=dev)
+    grid = torch.as_tensor(np.arange(-5000, 5000, 250, dtype=np.float32),
+                           device=dev)
+    c0 = acq.wipeoff_scale(4e6)
+    for x, dop in ((buf[:4001], grid), (buf[1:4001], grid),
+                   (buf[:4000], grid[3:4] + 1234.5),
+                   (buf[:4000], grid + 130.0)):
+        _wipeoff_case(x, dop, c0)
 
 
 def _acq_product_case(dev, p, d, n, offset):
@@ -194,7 +231,8 @@ def _acq_stats_case(dev, d, eff, spc, offset):
 
 def test_acq_kernels_match_plain(dev):
     """K2's four kernels against their plain versions, with the CFAR
-    statistic and with the second-peak ratio; K2b alone to the bit at an
+    statistic and with the second-peak ratio; K2a on its other layouts
+    and grids (``_wipeoff_grids_case``); K2b alone to the bit at an
     odd N, at a P x D x N that is no multiple of a block's work, from a
     misaligned spectrum and at the E5a search's 36 x 32 x 12000; K2d on
     planted peaks (ties, wrapping rows and exclusions) at rows of 4000
@@ -205,6 +243,7 @@ def test_acq_kernels_match_plain(dev):
     tests sets xdist's schedule of the memory-heavy JAX tests)."""
     for use_cfar in (True, False):
         _acq_case(dev, use_cfar)
+    _wipeoff_grids_case(dev)
     for p, d, n, offset in ((3, 5, 4001, 0), (5, 7, 778, 0), (4, 3, 1030, 1),
                             (36, 32, 12000, 0)):
         _acq_product_case(dev, p, d, n, offset)
@@ -508,7 +547,8 @@ def test_multicorr_kernel_on_e1_subchip_tables(dev, n_taps):
 def test_acq_kernels_at_e1_shapes(dev):
     """K2 on a 4 ms Galileo E1 dwell (16000 samples, 80 Doppler bins of
     125 Hz, CBOC replicas): the grid, its row peaks and both statistics
-    agree with the plain versions (the second peak to the bit)."""
+    agree with the plain versions (the second peak to the bit); K2a's
+    rows each equal a launch of their bin alone to the bit."""
     from gnss_sdr_tpu_torch.acquisition.adapters import \
         make_galileo_e1_acquisition
     from gnss_sdr_tpu_torch.kernels import acq
@@ -521,9 +561,7 @@ def test_acq_kernels_at_e1_shapes(dev):
     dop, c0 = eng._dopplers, eng._c0
     assert dop.shape[0] == 80 and n == 16000
     spec = torch.fft.fft(acq.acq_wipeoff_plain(x, dop, c0), dim=-1)
-    torch.testing.assert_close(acq.acq_wipeoff(x, dop, c0),
-                               acq.acq_wipeoff_plain(x, dop, c0),
-                               rtol=1e-5, atol=1e-5)
+    _wipeoff_case(x, dop, c0)
     prod = acq.acq_product_plain(spec, eng._code_fft)
     assert torch.equal(acq.acq_product(spec, eng._code_fft), prod)
     corr = torch.fft.ifft(prod, dim=-1)
@@ -545,10 +583,13 @@ def test_acq_kernels_at_e1_shapes(dev):
 
 def test_fold_wipeoff_kernel_matches_plain(dev):
     """K5a at QuickSync's L1 (1 ms) and E1 (4 ms) shapes: phases up to
-    ~125 rad at E1's last samples
+    ~125 rad at E1's last samples; S = 1 (equal to K2a to the bit), S = 3
+    (the body's loop over segments) and an odd folded row (one output a
+    thread), each on a grid of mirror pairs
     (the cases run in one test: the tier-1 run's count of collected
     tests sets xdist's schedule of the memory-heavy JAX tests)."""
-    for fold, n in ((2, 4000), (2, 16000), (4, 16368)):
+    for fold, n in ((2, 4000), (2, 16000), (4, 16368), (1, 4000),
+                    (3, 12000), (2, 4002)):
         _fold_wipeoff_case(dev, fold, n)
 
 
@@ -566,6 +607,10 @@ def _fold_wipeoff_case(dev, fold, n):
     want = k5.fold_wipeoff_plain(x, dop, c0, fold)
     assert got.shape == (dop.shape[0], n // fold)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    if fold == 1:
+        from gnss_sdr_tpu_torch.kernels.acq import acq_wipeoff
+
+        assert torch.equal(got, acq_wipeoff(x, dop, c0))
 
 
 def test_cccwsr_combine_kernel_matches_plain(dev):

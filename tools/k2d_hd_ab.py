@@ -43,16 +43,18 @@ K2D_SHAPES = (("L1", 8, 40, 4000, 4), ("E1", 7, 80, 16000, 4),
               ("E5a", 36, 32, 12000, 1))
 
 
-def build(roots: dict) -> dict:
-    """{(tag, source): path of the library} for both trees' ``acq.cu``
-    and ``multicorr.cu``, the four ``nvcc`` runs started together."""
+def build(roots: dict, names=("acq", "multicorr")) -> dict:
+    """{(tag, source): path of the library} for each tree's sources
+    ``names`` (``csrc/<name>.cu``), every ``nvcc`` run started together;
+    each compiler log (``-Xptxas -v``) is kept beside its library as
+    ``<library>.log``."""
     from gnss_sdr_tpu_torch.kernels import build as kb
 
     os.makedirs(OUT_DIR, exist_ok=True)
     procs = {}
     for tag, root in roots.items():
         csrc = os.path.join(root, "gnss_sdr_tpu_torch", "kernels", "csrc")
-        for name in ("acq", "multicorr"):
+        for name in names:
             so = os.path.join(OUT_DIR, f"{name}-{tag}.so")
             procs[(tag, name)] = (so, subprocess.Popen(
                 [kb.nvcc_path(), *kb.NVCC_FLAGS, "-I", csrc, "-o", so,
@@ -61,10 +63,36 @@ def build(roots: dict) -> dict:
     out = {}
     for key, (so, proc) in procs.items():
         log, _ = proc.communicate()
+        with open(so + ".log", "w") as fh:
+            fh.write(log)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {key}:\n{log}")
         out[key] = so
     return out
+
+
+def ab_runs(script: str, worker_argv, rounds: int, marker: str) -> list:
+    """``rounds`` rounds of this tree, the other, the other, this: each a
+    fresh process ``script --worker *worker_argv(tag, extras)`` whose
+    stdout holds one line ``marker + JSON``; ``extras`` is true for the
+    first run of this tree only. Returns [(tag, parsed JSON)] in order."""
+    runs = []
+    for _ in range(rounds):
+        for tag in ("this", "other", "other", "this"):
+            p = subprocess.run(
+                [sys.executable, os.path.abspath(script), "--worker",
+                 *worker_argv(tag, tag == "this" and not runs)],
+                cwd=ROOT, capture_output=True, text=True, timeout=600)
+            line = [s for s in p.stdout.splitlines() if s.startswith(marker)]
+            if p.returncode != 0 or not line:
+                raise RuntimeError(f"{os.path.basename(script)}: the {tag} "
+                                   f"run failed (rc {p.returncode}):\n"
+                                   f"{p.stderr[-4000:]}")
+            runs.append((tag, json.loads(line[0][len(marker):])))
+            print(f"{os.path.basename(script)}: {tag} "
+                  f"{json.dumps(runs[-1][1].get('times'))}", file=sys.stderr,
+                  flush=True)
+    return runs
 
 
 def k2d_inputs(torch, np, p, d, eff, dev):
@@ -229,25 +257,12 @@ def main() -> int:
     if args.other_root is None:
         ap.error("OTHER_ROOT is required")
     libs = build({"this": ROOT, "other": os.path.abspath(args.other_root)})
-    runs, extra = [], {}
-    for _ in range(args.rounds):
-        for tag in ("this", "other", "other", "this"):
-            out = os.path.join(OUT_DIR, f"out-{tag}.pt")
-            p = subprocess.run(
-                [sys.executable, os.path.abspath(__file__), "--worker",
-                 libs[(tag, "acq")], libs[(tag, "multicorr")], out,
-                 "1" if tag == "this" and not extra else "0"],
-                cwd=ROOT, capture_output=True, text=True, timeout=600)
-            line = [s for s in p.stdout.splitlines()
-                    if s.startswith("K2D_HD_AB ")]
-            if p.returncode != 0 or not line:
-                raise RuntimeError(f"k2d_hd_ab: the {tag} run failed (rc "
-                                   f"{p.returncode}):\n{p.stderr[-4000:]}")
-            r = json.loads(line[0][len("K2D_HD_AB "):])
-            extra = extra or r["extra"]
-            runs.append(dict(tree=tag, **r["times"]))
-            print(f"k2d_hd_ab: {json.dumps(runs[-1])}", file=sys.stderr,
-                  flush=True)
+    done = ab_runs(__file__, lambda tag, extras: (
+        libs[(tag, "acq")], libs[(tag, "multicorr")],
+        os.path.join(OUT_DIR, f"out-{tag}.pt"), "1" if extras else "0"),
+        args.rounds, "K2D_HD_AB ")
+    extra = done[0][1]["extra"]
+    runs = [dict(tree=tag, **r["times"]) for tag, r in done]
     agree = compare(torch, torch.load(os.path.join(OUT_DIR, "out-other.pt")),
                     torch.load(os.path.join(OUT_DIR, "out-this.pt")))
     cases = [k for k in runs[0] if k != "tree"]

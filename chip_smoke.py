@@ -17,7 +17,9 @@
    ``floor_us`` (an empty kernel launched alike), ``issue`` (the
    issue-rate floor from the kernel's SASS, with its launch) and
    ``host_us`` (the wrapper's host time a call by step), as K2b's line
-   adds its ``host_us``.
+   adds its ``host_us``. K1's lines (L1 here, the E1 shapes in step 6)
+   add ``floor_us`` (an empty kernel launched as K1 is); their bound
+   counts the bank as K1 reads it, packed (one word a row and sample).
 4. Slice phase: builds the production GPS L1 C/A receiver through
    ``make_receiver`` from an INI with the factory defaults (4 Msps, 8
    channels, K = 20), runs it over a generated 12 s scene of 8 satellites
@@ -675,26 +677,50 @@ def check_k3_long(torch, np, rng):
                rel_err(torch, got_im, want_im))
 
 
-def check_k1(torch, np, rng):
+#: K1's shapes on the main path by variant
+K1_SHAPES = {"L1": "GPS L1 C/A", "E1": "E1 pilot + data tap",
+             "E1B": "E1-B data only"}
+
+
+def k1_inputs(torch, np, rng, variant: str):
+    """(fast engine, ``bank_corr`` arguments) of K1 at one of the main
+    path's shapes (``K1_SHAPES``): "L1" (8 channels, K = 20, T = 3,
+    4001-sample windows), "E1" (the E1 pilot at K = 25 with the E1-B data
+    bank as a sixth tap) or "E1B" (E1-B alone at K = 1, T = 5; 16001-
+    sample windows), on a seeded synthetic ring from a realistic remnant
+    state."""
     from gnss_sdr_tpu_torch.codes import gps_l1ca_code
-    from gnss_sdr_tpu_torch.kernels import bank_corr as k1
+    from gnss_sdr_tpu_torch.codes.galileo_e1 import galileo_e1_subchips
     from gnss_sdr_tpu_torch.tracking.engine import TrackingConfig
     from gnss_sdr_tpu_torch.tracking.fast_engine import FastTrackingEngine
 
     dev = torch.device("cuda")
-    cfg = TrackingConfig(fs=4e6, extend_correlation_symbols=20)
     c = 8
-    fe = FastTrackingEngine(cfg, c, 5, device=dev)
-    prns = list(range(11, 11 + c))
-    delays = rng.uniform(0, 4000, c)
+    if variant == "L1":
+        cfg = TrackingConfig(fs=4e6, extend_correlation_symbols=20)
+        fe = FastTrackingEngine(cfg, c, 5, device=dev)
+        prns, period = list(range(11, 11 + c)), 4000
+    else:
+        pilot = variant == "E1"
+        cfg = e1_tracking_config(
+            track_pilot=pilot, extend_correlation_symbols=25 if pilot else 1)
+        fe = FastTrackingEngine(cfg, c, 1 if pilot else 25,
+                                sec_max_len=25 if pilot else 1, device=dev)
+        prns, period = [1, 2, 10, 12, 15, 17, 18, 21], 16000
+    delays = rng.uniform(0, period, c)
     dopps = rng.uniform(-4500, 4500, c)
-    ring = torch.as_tensor(synthetic_ring(
-        np, rng, 3 * fe.block_samples + fe.overlap,
-        list(zip(prns, delays, dopps))), device=dev)
+    chans = list(zip(prns, delays, dopps))
+    if variant == "L1":
+        ring = synthetic_ring(np, rng, 3 * fe.block_samples + fe.overlap,
+                              chans)
+    else:
+        ring = synthetic_e1_ring(np, rng, 2 * fe.block_samples + fe.overlap,
+                                 chans)
+    ring = torch.as_tensor(ring, device=dev)
     s = fe.init_state()
     for ch in range(c):
         s = fe.start_channel(s, ch, float(dopps[ch]),
-                             int(np.ceil(delays[ch])) % 4000)
+                             int(np.ceil(delays[ch])) % period)
     s = s._replace(
         rem_code_phase_samples=torch.as_tensor(
             rng.uniform(0, 1, c).astype(np.float32), device=dev),
@@ -702,47 +728,100 @@ def check_k1(torch, np, rng):
             rng.uniform(0, 6.28, c).astype(np.float32), device=dev),
         code_doppler_chips=torch.as_tensor(
             (dopps / 1540.0).astype(np.float32), device=dev))
-    codes = torch.as_tensor(np.stack([gps_l1ca_code(p) for p in prns])
-                            .astype(np.float32), device=dev)
-    bank = fe.get_bank(codes)
+    if variant == "L1":
+        bank = fe.get_bank(torch.as_tensor(
+            np.stack([gps_l1ca_code(p) for p in prns]).astype(np.float32),
+            device=dev))
+        base = fe.block_samples
+    else:
+        def tables(comp):
+            return torch.as_tensor(
+                np.stack([galileo_e1_subchips(p, comp, True)
+                          for p in prns]).astype(np.float32), device=dev)
+
+        bank = fe.get_bank(tables("C"), tables("B")) if variant == "E1" \
+            else fe.get_bank(tables("B"))
+        base = fe.block_samples - fe.k * period // 2
     q = fe.group_inputs(s)
-    base = fe.block_samples
-    args = (ring[0], ring[1], base, q["win_start"], q["ph0"], q["step"], bank,
-            q["j0"], q["w"], fe.n_eff)
-    got_re, got_im = k1.bank_corr(*args)
+    return fe, (ring[0], ring[1], base, q["win_start"], q["ph0"], q["step"],
+                bank, q["j0"], q["w"], fe.n_eff)
+
+
+def k1_bound_ms(torch, args, k: int) -> tuple[float, str]:
+    """K1's bound at ``bank_corr`` arguments ``args``: each window read
+    once (2 bytes a sample), each bank row the periods use read once (one
+    32-bit word of packed tap indices a sample, ``bank_corr.pack_indices``),
+    the value table, the per-period inputs and the outputs once, against
+    the float32 operations (rotation, 4 FMAs a tap and sample, the
+    interpolation)."""
+    _, _, _, _, _, _, bank, j0, _, n = args
+    c, p1, t, _ = bank.shape
+    rows = torch.unique(torch.cat([
+        j0 + p1 * torch.arange(c, device=j0.device)[:, None],
+        j0 + 1 + p1 * torch.arange(c, device=j0.device)[:, None]]))
+    nb = c * k * n * 2 + int(rows.numel()) * n * 4 + 16 * 4 \
+        + c * k * (4 * 4) + c * k * t * 8
+    no = c * k * n * (8 + 8 * t) + c * k * t * 6
+    return bound_ms(nb, no)
+
+
+def k1_floor_us(torch, blocks: int):
+    """The device time of an empty kernel launched as K1 is
+    (``bank_corr_empty``: ``blocks`` blocks of its threads): the
+    practical floor of a launch of that grid."""
+    from gnss_sdr_tpu_torch.kernels import build as kb
+
+    dev = torch.device("cuda")
+    f = kb.function("bank_corr", "bank_corr_empty", [kb.I32, kb.VP])
+    return kernel_device_us(
+        torch, lambda: kb.check(kb.launch(f, dev, blocks), "bank_corr_empty"),
+        "bank_corr_empty_kernel")
+
+
+def check_k1_at(torch, np, rng, variant: str):
+    """K1 against its plain version at one of ``K1_SHAPES``, timed (the
+    kernel, an empty kernel launched alike, the plain version, the TPU
+    formulation's all-17-row einsum) with its bound."""
+    from gnss_sdr_tpu_torch.kernels import bank_corr as k1
+
+    dev = torch.device("cuda")
+    fe, args = k1_inputs(torch, np, rng, variant)
+    packed = fe.packed_bank(args[6])
+    got_re, got_im = k1.bank_corr(*args, packed=packed)
     want_re, want_im = k1.bank_corr_plain(*args)
     torch.cuda.synchronize()
-    prompt = torch.sqrt(want_re[..., 1] ** 2 + want_im[..., 1] ** 2)
+    pt = fe.n_taps // 2
+    prompt = torch.sqrt(want_re[..., pt] ** 2 + want_im[..., pt] ** 2)
     err = float(torch.max(torch.maximum(
         torch.abs(got_re - want_re), torch.abs(got_im - want_im))
         / prompt[..., None]))
-    k, t, n = fe.k, cfg.n_taps, fe.n_eff
-    rows = torch.unique(torch.cat([
-        q["j0"] + 17 * torch.arange(c, device=dev)[:, None],
-        q["j0"] + 1 + 17 * torch.arange(c, device=dev)[:, None]]))
-    nb = c * k * n * 2 + int(rows.numel()) * t * n * 4 + c * k * (4 * 4) \
-        + c * k * t * 8
-    no = c * k * n * (8 + 8 * t) + c * k * t * 6
-    b, by = bound_ms(nb, no)
+    ring_re, base, win, bank = args[0], args[2], args[3], args[6]
+    c, k, t, n = bank.shape[0], fe.k, bank.shape[2], fe.n_eff
+    b, by = k1_bound_ms(torch, args, k)
     # the TPU formulation for comparison: one einsum of pre-rotated
     # windows against all 17 bank rows
-    idx = (base + q["win_start"].to(torch.int64))[..., None] \
+    idx = (base + win.to(torch.int64))[..., None] \
         + torch.arange(fe.win_len, device=dev)
-    rot = ring[0][idx].to(torch.float32)
+    rot = ring_re[idx].to(torch.float32)
+    l1 = variant == "L1"
     einsum_ms = time_ms(torch, lambda: torch.einsum("ckl,cptl->ckpt", rot,
-                                                    bank))
+                                                    bank), 50 if l1 else 10)
     return dict(name="bank_corr", route="cuda",
                 source="gnss_sdr_tpu_torch/kernels/csrc/bank_corr.cu",
-                replaces="gnss_sdr_tpu/tracking/fast_engine.py:683",
+                replaces="gnss_sdr_tpu/tracking/fast_engine.py:683"
+                + (", :734" if variant == "E1" else ""),
                 max_abs_err=float(torch.max(torch.abs(got_re - want_re))),
                 rel_err=err, tol=TOL["bank_corr"],
-                ms=time_ms(torch, lambda: k1.bank_corr(*args)),
-                device_us=kernel_device_us(torch,
-                                           lambda: k1.bank_corr(*args),
-                                           "bank_corr_kernel"),
-                plain_ms=time_ms(torch, lambda: k1.bank_corr_plain(*args)),
+                ms=time_ms(torch,
+                           lambda: k1.bank_corr(*args, packed=packed)),
+                device_us=kernel_device_us(
+                    torch, lambda: k1.bank_corr(*args, packed=packed),
+                    "bank_corr_kernel"),
+                floor_us=k1_floor_us(torch, c * k),
+                plain_ms=time_ms(torch, lambda: k1.bank_corr_plain(*args),
+                                 50 if l1 else 5),
                 bound_ms=b, bound_by=by, library_ms=None,
-                einsum_all_rows_ms=einsum_ms, variant="GPS L1 C/A",
+                einsum_all_rows_ms=einsum_ms, variant=K1_SHAPES[variant],
                 shape=f"C={c} K={k} T={t} n_eff={n} W={fe.win_len}")
 
 
@@ -896,7 +975,8 @@ def stats_floor_us(torch, p, eff):
 
 def kernel_phase(torch, np, prns):
     rng = np.random.default_rng(2024)
-    res = [check_k1(torch, np, rng), check_k3(torch, np, rng)]
+    res = [check_k1_at(torch, np, rng, "L1"),
+           check_k3(torch, np, rng)]
     res[1]["long_window_rel_err"] = check_k3_long(torch, np, rng)
     print(f"chip_smoke: multicorr long window (2.6 periods): rel err "
           f"{res[1]['long_window_rel_err']:.3g}", file=sys.stderr, flush=True)
@@ -1683,86 +1763,6 @@ def synthetic_e1_ring(np, rng, n: int, chans):
     return np.stack([re, im])
 
 
-def check_k1_e1(torch, np, rng, pilot: bool):
-    """K1 at the E1 band's fast-engine shapes: the pilot at K = 25 with
-    the E1-B data bank as a sixth tap (T = 5 + 1), or E1-B alone at K = 1
-    (T = 5); 8 channels, 16001-sample windows."""
-    from gnss_sdr_tpu_torch.codes.galileo_e1 import galileo_e1_subchips
-    from gnss_sdr_tpu_torch.kernels import bank_corr as k1
-    from gnss_sdr_tpu_torch.tracking.fast_engine import FastTrackingEngine
-
-    dev = torch.device("cuda")
-    c = 8
-    cfg = e1_tracking_config(track_pilot=pilot,
-                             extend_correlation_symbols=25 if pilot else 1)
-    fe = FastTrackingEngine(cfg, c, 1 if pilot else 25,
-                            sec_max_len=25 if pilot else 1, device=dev)
-    prns = [1, 2, 10, 12, 15, 17, 18, 21]
-    delays = rng.uniform(0, 16000, c)
-    dopps = rng.uniform(-4500, 4500, c)
-    ring = torch.as_tensor(synthetic_e1_ring(
-        np, rng, 2 * fe.block_samples + fe.overlap,
-        list(zip(prns, delays, dopps))), device=dev)
-    s = fe.init_state()
-    for ch in range(c):
-        s = fe.start_channel(s, ch, float(dopps[ch]),
-                             int(np.ceil(delays[ch])) % 16000)
-    s = s._replace(
-        rem_code_phase_samples=torch.as_tensor(
-            rng.uniform(0, 1, c).astype(np.float32), device=dev),
-        rem_carr_phase_rad=torch.as_tensor(
-            rng.uniform(0, 6.28, c).astype(np.float32), device=dev),
-        code_doppler_chips=torch.as_tensor(
-            (dopps / 1540.0).astype(np.float32), device=dev))
-
-    def tables(comp):
-        return torch.as_tensor(np.stack([galileo_e1_subchips(p, comp, True)
-                                         for p in prns]).astype(np.float32),
-                               device=dev)
-
-    bank = fe.get_bank(tables("C"), tables("B")) if pilot \
-        else fe.get_bank(tables("B"))
-    q = fe.group_inputs(s)
-    base = fe.block_samples - fe.k * 16000 // 2
-    args = (ring[0], ring[1], base, q["win_start"], q["ph0"], q["step"],
-            bank, q["j0"], q["w"], fe.n_eff)
-    got_re, got_im = k1.bank_corr(*args)
-    want_re, want_im = k1.bank_corr_plain(*args)
-    torch.cuda.synchronize()
-    prompt = torch.sqrt(want_re[..., 2] ** 2 + want_im[..., 2] ** 2)
-    err = float(torch.max(torch.maximum(
-        torch.abs(got_re - want_re), torch.abs(got_im - want_im))
-        / prompt[..., None]))
-    k, t, n = fe.k, bank.shape[2], fe.n_eff
-    rows = torch.unique(torch.cat([
-        q["j0"] + 17 * torch.arange(c, device=dev)[:, None],
-        q["j0"] + 1 + 17 * torch.arange(c, device=dev)[:, None]]))
-    nb = c * k * n * 2 + int(rows.numel()) * t * n * 4 + c * k * (4 * 4) \
-        + c * k * t * 8
-    no = c * k * n * (8 + 8 * t) + c * k * t * 6
-    b, by = bound_ms(nb, no)
-    idx = (base + q["win_start"].to(torch.int64))[..., None] \
-        + torch.arange(fe.win_len, device=dev)
-    rot = ring[0][idx].to(torch.float32)
-    einsum_ms = time_ms(torch, lambda: torch.einsum("ckl,cptl->ckpt", rot,
-                                                    bank), 10)
-    variant = "E1 pilot + data tap" if pilot else "E1-B data only"
-    return dict(name="bank_corr", route="cuda",
-                source="gnss_sdr_tpu_torch/kernels/csrc/bank_corr.cu",
-                replaces="gnss_sdr_tpu/tracking/fast_engine.py:683"
-                + (", :734" if pilot else ""),
-                max_abs_err=float(torch.max(torch.abs(got_re - want_re))),
-                rel_err=err, tol=TOL["bank_corr"],
-                ms=time_ms(torch, lambda: k1.bank_corr(*args)),
-                device_us=kernel_device_us(torch,
-                                           lambda: k1.bank_corr(*args),
-                                           "bank_corr_kernel"),
-                plain_ms=time_ms(torch, lambda: k1.bank_corr_plain(*args), 5),
-                bound_ms=b, bound_by=by, library_ms=None,
-                einsum_all_rows_ms=einsum_ms, variant=variant,
-                shape=f"C={c} K={k} T={t} n_eff={n} W={fe.win_len}")
-
-
 def check_k3_e1(torch, np, rng):
     """K3 at the E1 band's scan-engine shapes: 8 channels of 16016-sample
     windows on the 49104-entry CBOC sub-chip tables of the E1-C pilot
@@ -1856,8 +1856,8 @@ def check_k2_e1(torch, np, rng, prns):
 def e1_kernel_phase(torch, np, gal_prns):
     """The kernels of the multi-band path at the E1 band's shapes."""
     rng = np.random.default_rng(2025)
-    res = [check_k1_e1(torch, np, rng, True),
-           check_k1_e1(torch, np, rng, False)]
+    res = [check_k1_at(torch, np, rng, "E1"),
+           check_k1_at(torch, np, rng, "E1B")]
     res.extend(check_k3_e1(torch, np, rng))
     res.extend(check_k2_e1(torch, np, rng, gal_prns))
     report(res)
@@ -2254,16 +2254,17 @@ def fast_case(torch, fast, state, ring, base, n, bank, variant, launches,
 
     def bound_of(pa):
         # the windows once (the segmented sum: its group windows), two
-        # bank rows a channel at least (or the tables), the records and
-        # the state in and out once
+        # packed bank rows a channel at least (one 32-bit word a sample,
+        # bank_corr.pack_indices; or the tables), the records and the state
+        # in and out once
         state_b = sum(x.numel() * x.element_size() for x in state)
         if seg:
             n_samp = n * g * c * fast.lg
             return (n_samp * 2 + bank.numel() * 4 + pa.numel() * 4
                     + 2 * state_b, n_samp * (8 + 4 * nt))
         n_samp = n * g * c * k * fast.n_eff
-        return (n_samp * 2 + c * 2 * nt * fast.n_eff * 4 + pa.numel() * 4
-                + 2 * state_b, n_samp * (8 + 8 * nt))
+        return (n_samp * 2 + c * 2 * fast.n_eff * 4 + 16 * 4
+                + pa.numel() * 4 + 2 * state_b, n_samp * (8 + 8 * nt))
     jj = list(range(k))
     shape = f"C={c} K={k} T={nt} G={g} blocks={n} " + (
         f"lg={fast.lg} table={fast.table_len}" if seg

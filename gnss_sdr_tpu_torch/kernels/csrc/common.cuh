@@ -43,13 +43,19 @@ __device__ __forceinline__ void block_sum(float (&v)[N], float* scratch) {
   }
 }
 
+// x * (c - j s): the rotation of derotate by a phase's cosine and sine.
+__device__ __forceinline__ void rotate(float xr, float xi, float s, float c,
+                                       float& out_re, float& out_im) {
+  out_re = __fadd_rn(__fmul_rn(xr, c), __fmul_rn(xi, s));
+  out_im = __fsub_rn(__fmul_rn(xi, c), __fmul_rn(xr, s));
+}
+
 // x * e^{-j phase}: the carrier wipe-off of the tracking correlators.
 __device__ __forceinline__ void derotate(float xr, float xi, float phase,
                                          float& out_re, float& out_im) {
   float s, c;
   sincosf(phase, &s, &c);
-  out_re = __fadd_rn(__fmul_rn(xr, c), __fmul_rn(xi, s));
-  out_im = __fsub_rn(__fmul_rn(xi, c), __fmul_rn(xr, s));
+  rotate(xr, xi, s, c, out_re, out_im);
 }
 
 // (value, index) max with the first index winning ties (jnp.argmax's rule)

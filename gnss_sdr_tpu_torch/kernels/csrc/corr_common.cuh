@@ -114,29 +114,142 @@ __device__ __forceinline__ void k3_accumulate(
   }
 }
 
-// K1's body: this thread's partial sums of the window at s0 (n < n_eff)
-// rotated by ph0 + step n, against bank rows b0 (acc[0, 2 NT): re, im)
-// and b1 (acc[2 NT, 4 NT)), each row NT taps of W columns.
+// ---- K1's body (bank_corr.cu's K1, fast_loop.cu's K1-loop) -----------
+//
+// The bank is read packed (kernels/bank_corr.py::pack_indices): one 32-bit
+// word a bank row and sample, tap t's entry in bits 4t .. 4t + 3 as an
+// index into a table of at most kK1Values float32 values, the bank's
+// distinct bit patterns (+-1 and 0 at L1, the CBOC levels and 0 at E1),
+// which the block holds in shared memory. The table gives back the
+// float32 bank's entries to the bit, so every product and sum is the one
+// the float32 bank gave. A thread keeps its samples (tid, tid + nthreads,
+// ...) and their order; it only loads the next kK1Batch samples' int8
+// pairs and words while it rotates and sums the current ones, so each
+// step no longer waits out a memory round trip behind the sincosf.
+constexpr int kK1Batch = 4;     // samples a thread has in flight
+constexpr int kK1Values = 16;   // entries of the value table
+
+// This thread's samples n, n + nthreads, ... (kK1Batch of them, those
+// below n_eff) of the window at s0 and of the packed rows b0, b1.
+template <typename T>
+__device__ __forceinline__ void k1_fetch(
+    const T* __restrict__ src_re, const T* __restrict__ src_im, long long s0,
+    const uint32_t* __restrict__ b0, const uint32_t* __restrict__ b1, int n,
+    int n_eff, int nthreads, T (&nr)[kK1Batch], T (&ni)[kK1Batch],
+    uint32_t (&n0)[kK1Batch], uint32_t (&n1)[kK1Batch]) {
+#pragma unroll
+  for (int u = 0; u < kK1Batch; ++u) {
+    const int m = n + u * nthreads;
+    nr[u] = ni[u] = 0;
+    n0[u] = n1[u] = 0u;
+    if (m < n_eff) {
+      nr[u] = src_re[s0 + m];
+      ni[u] = src_im[s0 + m];
+      n0[u] = b0[m];
+      n1[u] = b1[m];
+    }
+  }
+}
+
+// The rotated sample (rr, ri) against the two rows' packed words a0, a1
+// (value table ``vals``).
+template <int NT>
+__device__ __forceinline__ void k1_taps(float rr, float ri, uint32_t a0,
+                                        uint32_t a1, const float* vals,
+                                        float (&acc)[4 * NT]) {
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    const float q0 = vals[(a0 >> (4 * t)) & 15u];
+    const float q1 = vals[(a1 >> (4 * t)) & 15u];
+    acc[t] = __fmaf_rn(q0, rr, acc[t]);
+    acc[NT + t] = __fmaf_rn(q0, ri, acc[NT + t]);
+    acc[2 * NT + t] = __fmaf_rn(q1, rr, acc[2 * NT + t]);
+    acc[3 * NT + t] = __fmaf_rn(q1, ri, acc[3 * NT + t]);
+  }
+}
+
+// A whole batch (samples n + u nthreads, all below n_eff): every sample's
+// sincosf first, then the rotations and sums in sample order. Without a
+// guard a sample the batch is one stretch of code, so the compiler can
+// overlap one sample's lookups and products with another's; each
+// accumulator still takes the samples in order.
 template <typename T, int NT>
+__device__ __forceinline__ void k1_batch(
+    const T (&xr)[kK1Batch], const T (&xi)[kK1Batch], int n, int nthreads,
+    float p0, float st, const uint32_t (&a0)[kK1Batch],
+    const uint32_t (&a1)[kK1Batch], const float* vals,
+    float (&acc)[4 * NT]) {
+  float sn[kK1Batch], cs[kK1Batch];
+#pragma unroll
+  for (int u = 0; u < kK1Batch; ++u)
+    sincosf(__fadd_rn(p0, __fmul_rn(st, static_cast<float>(n + u * nthreads))),
+            &sn[u], &cs[u]);
+#pragma unroll
+  for (int u = 0; u < kK1Batch; ++u) {
+    float rr, ri;
+    rotate(to_f32(xr[u]), to_f32(xi[u]), sn[u], cs[u], rr, ri);
+    k1_taps<NT>(rr, ri, a0[u], a1[u], vals, acc);
+  }
+}
+
+// Sample n (xr, xi) rotated by p0 + st n against the two rows' packed
+// words a0, a1: one sample of a batch that reaches past n_eff.
+template <typename T, int NT>
+__device__ __forceinline__ void k1_sample(T xr, T xi, int n, float p0,
+                                          float st, uint32_t a0, uint32_t a1,
+                                          const float* vals,
+                                          float (&acc)[4 * NT]) {
+  float rr, ri;
+  derotate(to_f32(xr), to_f32(xi),
+           __fadd_rn(p0, __fmul_rn(st, static_cast<float>(n))), rr, ri);
+  k1_taps<NT>(rr, ri, a0, a1, vals, acc);
+}
+
+// K1's body: this thread's partial sums of the window at s0 (n < n_eff)
+// rotated by ph0 + step n, against packed bank rows b0 (acc[0, 2 NT):
+// re, im) and b1 (acc[2 NT, 4 NT)), NT taps a word. ``vals`` is the
+// block's value table in shared memory; with STAGE the body copies it
+// there from ``values`` itself, after the first samples' loads are on
+// their way, and waits for the block (every thread of the block calls
+// it), else the caller has staged it.
+template <typename T, int NT, bool STAGE>
 __device__ __forceinline__ void k1_accumulate(
     const T* __restrict__ src_re, const T* __restrict__ src_im, long long s0,
-    float p0, float st, const float* __restrict__ b0,
-    const float* __restrict__ b1, int W, int n_eff, float (&acc)[4 * NT],
-    int tid, int nthreads) {
+    float p0, float st, const uint32_t* __restrict__ b0,
+    const uint32_t* __restrict__ b1, const float* __restrict__ values,
+    float* vals, int n_eff, float (&acc)[4 * NT], int tid, int nthreads) {
 #pragma unroll
   for (int i = 0; i < 4 * NT; ++i) acc[i] = 0.0f;
-  for (int n = tid; n < n_eff; n += nthreads) {
-    float rr, ri;
-    derotate(to_f32(src_re[s0 + n]), to_f32(src_im[s0 + n]),
-             __fadd_rn(p0, __fmul_rn(st, static_cast<float>(n))), rr, ri);
+  T cr[kK1Batch], ci[kK1Batch];
+  uint32_t c0[kK1Batch], c1[kK1Batch];
+  k1_fetch<T>(src_re, src_im, s0, b0, b1, tid, n_eff, nthreads, cr, ci, c0,
+              c1);
+  if constexpr (STAGE) {
+    if (tid < kK1Values) vals[tid] = values[tid];
+    __syncthreads();
+  }
+  for (int n = tid; n < n_eff; n += kK1Batch * nthreads) {
+    T nr[kK1Batch], ni[kK1Batch];
+    uint32_t n0[kK1Batch], n1[kK1Batch];
+    k1_fetch<T>(src_re, src_im, s0, b0, b1, n + kK1Batch * nthreads, n_eff,
+                nthreads, nr, ni, n0, n1);
+    if (n + (kK1Batch - 1) * nthreads < n_eff) {
+      k1_batch<T, NT>(cr, ci, n, nthreads, p0, st, c0, c1, vals, acc);
+    } else {
 #pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      const float q0 = __ldg(b0 + (size_t)t * W + n);
-      const float q1 = __ldg(b1 + (size_t)t * W + n);
-      acc[t] = __fmaf_rn(q0, rr, acc[t]);
-      acc[NT + t] = __fmaf_rn(q0, ri, acc[NT + t]);
-      acc[2 * NT + t] = __fmaf_rn(q1, rr, acc[2 * NT + t]);
-      acc[3 * NT + t] = __fmaf_rn(q1, ri, acc[3 * NT + t]);
+      for (int u = 0; u < kK1Batch; ++u) {
+        const int m = n + u * nthreads;
+        if (m < n_eff)
+          k1_sample<T, NT>(cr[u], ci[u], m, p0, st, c0[u], c1[u], vals,
+                           acc);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kK1Batch; ++u) {
+      cr[u] = nr[u];
+      ci[u] = ni[u];
+      c0[u] = n0[u];
+      c1[u] = n1[u];
     }
   }
 }

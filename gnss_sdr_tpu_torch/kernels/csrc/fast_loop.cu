@@ -27,18 +27,26 @@
 // steps through loops.cuh, K6's own device functions) and writes the
 // group's record. A group's periods cannot start before the previous
 // group's closure; one block a channel would walk them one after
-// another (25 x ~41 us a group at E1, on 8 of 132 SMs at C = 8). S (fast_cluster) takes the fewest rounds of at
-// most 16 blocks: 10 blocks of two periods at L1 (K = 20), 13 at E1
-// (K = 25). The cluster's barriers stand in for the grid-wide barrier a
-// launch of C K blocks would need twice a group.
+// another (25 a group at E1, on 8 of 132 SMs at C = 8). S (fast_cluster)
+// takes the fewest rounds of at most 16 blocks: 10 blocks of two periods
+// at L1 (K = 20), 13 at E1 (K = 25). The cluster's barriers stand in for
+// the grid-wide barrier a launch of C K blocks would need twice a group.
+// The bank is read packed (K1's form: one word a row and sample, the
+// value table staged once in each block's shared memory), and a block
+// keeps the next samples' loads in flight while it sums the current ones
+// (corr_common.cuh::k1_accumulate). Two periods a block at once (512
+// threads) would end in one round, but the card then holds 7 clusters of
+// 10 or 13 such blocks at once, so at C = 8 one channel waits a whole
+// launch (PERF.md).
 //
 // Bound: a superblock must read each channel's windows once (2 bytes a
-// sample from the int8 ring), the bank rows it uses once and write its
-// records once: at L1 (8 channels, 10 blocks x 5 groups x 20 periods of
-// 4001 samples, 2 rows of 3 taps a period) ~17 MB, ~5 us at 3.35 TB/s;
-// the real floor is the serial chain of groups of each channel: per
-// group one period's correlation on one block, two cluster barriers and
-// one thread's closure.
+// sample from the int8 ring), the packed bank rows it uses once and write
+// its records once: at L1 (8 channels, 10 blocks x 5 groups x 20 periods
+// of 4001 samples, 2 rows a period) ~16 MB, ~5 us at 3.35 TB/s; the real
+// floor is the serial chain of groups of each channel: per group its
+// rounds of periods' correlations on one block each, two cluster barriers
+// and one thread's closure (without the correlations the chain alone
+// takes ~8 us a group at L1, ~16 us at E1).
 //
 // K1-seg (fast_loop_seg_kernel, a segsum engine): the correlation body is
 // the segmented sum of gnss_sdr_tpu/tracking/fast_engine.py:746-828 (the
@@ -450,12 +458,14 @@ __device__ void close_group(const FastConsts& k, FastCarry& s,
 template <typename T, int NP, int ND, bool SEG>
 __device__ __forceinline__ void fast_loop_body(
     const T* __restrict__ src_re, const T* __restrict__ src_im,
-    long long base, const float* __restrict__ bank, const FastStatePtrs& in,
+    long long base, const void* __restrict__ bank,
+    const float* __restrict__ values, const FastStatePtrs& in,
     const FastStatePtrs& out, const FastConsts& k, float* __restrict__ packed,
     float* __restrict__ prompt_re, float* __restrict__ prompt_im) {
   constexpr int NT = NP + ND;
   extern __shared__ float s_tab[];   // SEG: the channel's pilot code table
   __shared__ float scratch[4 * NT * 32];
+  __shared__ float vals[kK1Values];  // K1: the packed bank's value table
   __shared__ FastCarry st;           // the leader's
   __shared__ GroupInputs q;          // the leader's; the others' copies
   __shared__ float s_cre[kMaxK * NT], s_cim[kMaxK * NT];   // the leader's
@@ -465,16 +475,21 @@ __device__ __forceinline__ void fast_loop_body(
   const bool lead = r == 0;
   const int c = blockIdx.x / S, C = gridDim.x / S;
   if (lead && threadIdx.x == 0) load_carry(in, c, k, st);
-  // K1: the channel's bank rows [P + 1][NT][W]; K1-seg: its tables
-  // [1 + ND][table_len], the pilot's staged in shared memory
-  const float* bank_c = SEG ? bank + (size_t)c * (1 + ND) * k.table_len
-                            : bank + (size_t)c * k.P1 * NT * (size_t)k.W;
+  // K1: the channel's packed bank rows [P + 1][W] (NT taps a word) and
+  // the value table in shared memory; K1-seg: its tables [1 +
+  // ND][table_len], the pilot's staged in shared memory
+  const float* tab_c = static_cast<const float*>(bank)
+                       + (size_t)c * (1 + ND) * k.table_len;
+  const uint32_t* words_c = static_cast<const uint32_t*>(bank)
+                            + (size_t)c * k.P1 * (size_t)k.W;
   float sh[NP];
   if constexpr (SEG) {
     for (int i = threadIdx.x; i < k.table_len; i += blockDim.x)
-      s_tab[i] = bank_c[i];
+      s_tab[i] = tab_c[i];
 #pragma unroll
     for (int t = 0; t < NP; ++t) sh[t] = k.shifts[t];
+  } else {
+    if (threadIdx.x < kK1Values) vals[threadIdx.x] = values[threadIdx.x];
   }
   const GroupInputs* lead_q = cluster.map_shared_rank(&q, 0);
   float* lead_cre = cluster.map_shared_rank(s_cre, 0);
@@ -510,7 +525,7 @@ __device__ __forceinline__ void fast_loop_body(
           float acc[2 * NT];
           seg_accumulate<T, NP, ND>(src_re, src_im, bb + q.seg_win, k.lg, j,
                                     k.K, k.table_len, s_tab,
-                                    bank_c + k.table_len, sh, q.seg_rem,
+                                    tab_c + k.table_len, sh, q.seg_rem,
                                     q.seg_code_step, q.seg_rem_carr, q.step,
                                     acc, threadIdx.x, blockDim.x);
           block_sum<2 * NT>(acc, scratch);
@@ -522,11 +537,12 @@ __device__ __forceinline__ void fast_loop_body(
             }
           }
         } else {
-          const float* b0 = bank_c + (size_t)q.j0[j] * NT * k.W;
+          const uint32_t* b0 = words_c + (size_t)q.j0[j] * k.W;
           float acc[4 * NT];
-          k1_accumulate<T, NT>(src_re, src_im, bb + q.win[j], q.ph0[j],
-                               q.step, b0, b0 + (size_t)NT * k.W, k.W,
-                               k.n_eff, acc, threadIdx.x, blockDim.x);
+          k1_accumulate<T, NT, false>(src_re, src_im, bb + q.win[j],
+                                      q.ph0[j], q.step, b0, b0 + k.W,
+                                      nullptr, vals, k.n_eff, acc,
+                                      threadIdx.x, blockDim.x);
           block_sum<4 * NT>(acc, scratch);
           if (threadIdx.x == 0)
             k1_interp<NT>(acc, q.w[j], lead_cre + j * NT, lead_cim + j * NT);
@@ -548,16 +564,18 @@ __device__ __forceinline__ void fast_loop_body(
   if (lead && threadIdx.x == 0) store_carry(out, c, k, st);
 }
 
-// K1-loop with the code bank (the production correlator)
+// K1-loop with the code bank (the production correlator): ``bank`` the
+// packed rows [C][P + 1][W], ``values`` their value table
 template <typename T, int NP, int ND>
 __global__ void __launch_bounds__(kThreads)
 fast_loop_kernel(const T* __restrict__ src_re, const T* __restrict__ src_im,
-                 long long base, const float* __restrict__ bank,
-                 FastStatePtrs in, FastStatePtrs out, FastConsts k,
+                 long long base, const void* __restrict__ bank,
+                 const float* __restrict__ values, FastStatePtrs in,
+                 FastStatePtrs out, FastConsts k,
                  float* __restrict__ packed, float* __restrict__ prompt_re,
                  float* __restrict__ prompt_im) {
-  fast_loop_body<T, NP, ND, false>(src_re, src_im, base, bank, in, out, k,
-                                   packed, prompt_re, prompt_im);
+  fast_loop_body<T, NP, ND, false>(src_re, src_im, base, bank, values, in,
+                                   out, k, packed, prompt_re, prompt_im);
 }
 
 // K1-loop with the segmented sum (K1-seg) as its correlation body
@@ -565,19 +583,20 @@ template <typename T, int NP, int ND>
 __global__ void __launch_bounds__(kThreads)
 fast_loop_seg_kernel(const T* __restrict__ src_re,
                      const T* __restrict__ src_im, long long base,
-                     const float* __restrict__ tables, FastStatePtrs in,
+                     const void* __restrict__ tables,
+                     const float* __restrict__ values, FastStatePtrs in,
                      FastStatePtrs out, FastConsts k,
                      float* __restrict__ packed,
                      float* __restrict__ prompt_re,
                      float* __restrict__ prompt_im) {
-  fast_loop_body<T, NP, ND, true>(src_re, src_im, base, tables, in, out, k,
-                                  packed, prompt_re, prompt_im);
+  fast_loop_body<T, NP, ND, true>(src_re, src_im, base, tables, values, in,
+                                  out, k, packed, prompt_re, prompt_im);
 }
 
 template <typename T>
-using FastKernel = void (*)(const T*, const T*, long long, const float*,
-                            FastStatePtrs, FastStatePtrs, FastConsts, float*,
-                            float*, float*);
+using FastKernel = void (*)(const T*, const T*, long long, const void*,
+                            const float*, FastStatePtrs, FastStatePtrs,
+                            FastConsts, float*, float*, float*);
 
 template <typename T, int NP, int ND>
 FastKernel<T> fast_kernel_of(bool seg) {
@@ -597,7 +616,8 @@ FastKernel<T> fast_kernel(int n_taps, int track_pilot, bool seg) {
   }
 }
 
-// dynamic shared memory: K1-seg's pilot table (K1 needs none)
+// dynamic shared memory: K1-seg's pilot table (K1 needs none: its value
+// table is 16 floats of static shared memory)
 size_t fast_smem(bool seg, int table_len) {
   return seg ? sizeof(float) * table_len : 0;
 }
@@ -615,8 +635,9 @@ int fast_cluster(int K, size_t smem) {
 }
 
 template <typename T>
-int launch(const T* re, const T* im, long long base, const float* bank,
-           int n_taps, int track_pilot, FastStatePtrs in, FastStatePtrs out,
+int launch(const T* re, const T* im, long long base, const void* bank,
+           const float* values, int n_taps, int track_pilot,
+           FastStatePtrs in, FastStatePtrs out,
            FastConsts k, float* packed, float* prompt_re, float* prompt_im,
            int C, cudaStream_t stream) {
   const FastKernel<T> kern = fast_kernel<T>(n_taps, track_pilot, k.seg != 0);
@@ -624,37 +645,40 @@ int launch(const T* re, const T* im, long long base, const float* bank,
       k.K < 1 || k.K > kMaxK || k.sec_max_len < 1 ||
       k.sec_max_len > kMaxSec || C < 1 ||
       (k.loop == kLoopGaussian && k.gs.order != 2 && k.gs.order != 3) ||
-      (k.seg && (k.table_len < 1 || k.lg < 1 || k.lg > k.total)))
+      (k.seg && (k.table_len < 1 || k.lg < 1 || k.lg > k.total)) ||
+      (!k.seg && values == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = fast_smem(k.seg != 0, k.table_len);
   return cluster_launch(kern, C, fast_cluster(k.K, smem), kThreads, smem,
-                        stream, re, im, base, bank, in, out, k, packed,
-                        prompt_re, prompt_im);
+                        stream, re, im, base, bank, values, in, out, k,
+                        packed, prompt_re, prompt_im);
 }
 
 }  // namespace
 
 extern "C" {
 
-// int8 planar ring (superblock_ring_i8); the widening folded into the load
+// int8 planar ring (superblock_ring_i8); the widening folded into the
+// load. ``bank``: the packed bank rows (``values`` their value table) or,
+// seg, the code tables (``values`` unused)
 int fast_loop_i8(const int8_t* re, const int8_t* im, long long base,
-                 const float* bank, int n_taps, int track_pilot,
-                 FastStatePtrs in, FastStatePtrs out, FastConsts k,
-                 float* packed, float* prompt_re, float* prompt_im, int C,
-                 void* stream) {
-  return launch<int8_t>(re, im, base, bank, n_taps, track_pilot, in, out, k,
-                        packed, prompt_re, prompt_im, C,
+                 const void* bank, const float* values, int n_taps,
+                 int track_pilot, FastStatePtrs in, FastStatePtrs out,
+                 FastConsts k, float* packed, float* prompt_re,
+                 float* prompt_im, int C, void* stream) {
+  return launch<int8_t>(re, im, base, bank, values, n_taps, track_pilot, in,
+                        out, k, packed, prompt_re, prompt_im, C,
                         static_cast<cudaStream_t>(stream));
 }
 
 // float32 planes (process_block)
 int fast_loop_f32(const float* re, const float* im, long long base,
-                  const float* bank, int n_taps, int track_pilot,
-                  FastStatePtrs in, FastStatePtrs out, FastConsts k,
-                  float* packed, float* prompt_re, float* prompt_im, int C,
-                  void* stream) {
-  return launch<float>(re, im, base, bank, n_taps, track_pilot, in, out, k,
-                       packed, prompt_re, prompt_im, C,
+                  const void* bank, const float* values, int n_taps,
+                  int track_pilot, FastStatePtrs in, FastStatePtrs out,
+                  FastConsts k, float* packed, float* prompt_re,
+                  float* prompt_im, int C, void* stream) {
+  return launch<float>(re, im, base, bank, values, n_taps, track_pilot, in,
+                       out, k, packed, prompt_re, prompt_im, C,
                        static_cast<cudaStream_t>(stream));
 }
 

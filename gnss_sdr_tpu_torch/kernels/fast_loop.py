@@ -171,7 +171,8 @@ def fast_loop(eng, state, src_re, src_im, base: int, block_stride: int,
     block b reads ``src[base + b * block_stride:][:block_samples +
     overlap]``; ``bank`` from ``eng.get_bank``: the code bank [C, P + 1,
     T (+ 1 data tap), W], or a segsum engine's raw tables [C, 1 (+ 1),
-    table_len]."""
+    table_len]. The bank body reads the bank's packed form, which the
+    engine made beside it (``eng.packed_bank``)."""
     if src_re.device.type == "cpu":
         return eng._blocks_stepwise(state, src_re, src_im, base,
                                     block_stride, n_blocks, bank)
@@ -206,12 +207,20 @@ def fast_loop(eng, state, src_re, src_im, base: int, block_stride: int,
     prompt_re = torch.empty((n_blocks, eng.g, c), dtype=torch.float32,
                             device=dev)
     prompt_im = torch.empty_like(prompt_re)
+    if k.seg:
+        rows, values = bank.data_ptr(), None
+    else:
+        form = eng.packed_bank(bank)
+        if form is None:
+            raise ValueError("fast_loop: the bank's packed form is missing: "
+                             "a bank from the engine's get_bank expected")
+        rows, values = form[0].data_ptr(), form[1].data_ptr()
     pt = kb.pointer_struct(tuple(spec))
     f = kb.function("fast_loop", fn, [
-        kb.VP, kb.VP, kb.I64, kb.VP, kb.I32, kb.I32, pt, pt, FastConsts,
-        kb.VP, kb.VP, kb.VP, kb.I32, kb.VP])
+        kb.VP, kb.VP, kb.I64, kb.VP, kb.VP, kb.I32, kb.I32, pt, pt,
+        FastConsts, kb.VP, kb.VP, kb.VP, kb.I32, kb.VP])
     err = kb.launch(f, dev, src_re.data_ptr(), src_im.data_ptr(), int(base),
-                    bank.data_ptr(), t, int(pilot), s_in, s_out, k,
+                    rows, values, t, int(pilot), s_in, s_out, k,
                     packed.data_ptr(), prompt_re.data_ptr(),
                     prompt_im.data_ptr(), c)
     kb.check(err, fn)

@@ -73,6 +73,9 @@ class ShardedEngine:
         self.engine, self.mesh = engine, mesh
         self.engines = [shard_engine(engine, c // mesh.size, d)
                         for d in mesh.devices]
+        #: the fast engine's last placed bank: (bank, its pieces, their
+        #: packed forms)
+        self._bank = None
 
     def shard_state(self, state) -> list:
         return shard_tracking_state(state, self.mesh)
@@ -82,6 +85,26 @@ class ShardedEngine:
         ...]); a list is taken as already split."""
         return x if isinstance(x, list) else channel_sharding(
             self.mesh).place(x)
+
+    def shard_bank(self, bank) -> list:
+        """A fast engine's bank (from ``engine.get_bank``) split along its
+        channels, placed once a bank: each shard engine is handed its
+        piece with the same piece of the bank's packed form
+        (``FastTrackingEngine.set_bank``), so no shard packs a bank again.
+        A list is taken as already split (each piece from its shard
+        engine's ``get_bank``)."""
+        if isinstance(bank, list):
+            return bank
+        if self._bank is None or self._bank[0] is not bank:
+            pieces = self.shard_channels(bank)
+            packed = self.engine.packed_bank(bank)
+            forms = [None] * len(pieces) if packed is None else list(zip(
+                self.shard_channels(packed[0]), self.replicate(packed[1])))
+            self._bank = (bank, pieces, forms)
+        _, pieces, forms = self._bank
+        for eng, piece, form in zip(self.engines, pieces, forms):
+            eng.set_bank(piece, form)
+        return pieces
 
     def replicate(self, x) -> list:
         """One reference a shard, one copy a distinct device; a list is
@@ -109,19 +132,23 @@ class ShardedEngine:
     def superblock_ring_i8(self, states, ring, base: int, n_blocks: int,
                            tables, data_code_tables=None):
         """Each shard's ``superblock_ring_i8`` on the replicated int8 ring;
-        ``tables`` are the scan engine's code tables or the fast engine's
-        bank (from ``get_bank``), split along the channel axis. Of a ring
-        tensor only the window the superblock reads, ``[base, base +
-        n_blocks * block + overlap)``, is replicated, and read from 0 (the
-        kernels take ``base`` as a pointer offset only)."""
+        ``tables`` are the scan engine's code tables, split along the
+        channel axis, or the fast engine's bank (from ``get_bank``,
+        :meth:`shard_bank`). Of a ring tensor only the window the
+        superblock reads, ``[base, base + n_blocks * block + overlap)``,
+        is replicated, and read from 0 (the kernels take ``base`` as a
+        pointer offset only)."""
         n = len(self.engines)
         if not isinstance(ring, list):
             eng = self.engine
             need = int(base) + int(n_blocks) * eng.block_samples \
                 + eng.overlap
             ring, base = ring[:, int(base):need], 0
+        tables = self.shard_bank(tables) \
+            if hasattr(self.engine, "packed_bank") \
+            else self.shard_channels(tables)
         args = [self.replicate(ring), [int(base)] * n, [int(n_blocks)] * n,
-                self.shard_channels(tables)]
+                tables]
         if data_code_tables is not None:
             args.append(self.shard_channels(data_code_tables))
         return self._run("superblock_ring_i8", states, *args)

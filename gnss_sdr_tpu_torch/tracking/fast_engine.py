@@ -40,7 +40,8 @@ import numpy as np
 import torch
 
 from gnss_sdr_tpu_torch.device import resolve_device
-from gnss_sdr_tpu_torch.kernels.bank_corr import bank_corr
+from gnss_sdr_tpu_torch.kernels.bank_corr import (bank_corr, on_device,
+                                                  pack_indices, value_table)
 from gnss_sdr_tpu_torch.kernels.fast_loop import fast_loop
 from gnss_sdr_tpu_torch.ops import discriminators as disc
 from gnss_sdr_tpu_torch.ops import lock_detectors as lockdet
@@ -342,10 +343,12 @@ class FastTrackingEngine:
         being recycled). The bank correlator: the [C, P+1, T, win_len]
         resampled-code bank; a pilot-tracked engine appends the data
         code's single zero-shift bank (``_get_data_bank``'s role) as tap T,
-        so K1 returns the data prompt beside the pilot taps. The segmented
-        sum: the raw tables [C, 1, table_len], the data code's stacked as
-        row 1 on a pilot-tracked engine (the JAX engine passes both as
-        they are)."""
+        so K1 returns the data prompt beside the pilot taps. Its packed
+        form, which the kernels read (:meth:`packed_bank`), is made with
+        it from the same gathers: tables of more than 16 distinct values
+        raise ``ValueError``. The segmented sum: the raw tables [C, 1,
+        table_len], the data code's stacked as row 1 on a pilot-tracked
+        engine (the JAX engine passes both as they are)."""
         if self.track_pilot and data_code_tables is None:
             raise ValueError("track_pilot engine needs data_code_tables")
         cache = self._bank_cache
@@ -362,40 +365,73 @@ class FastTrackingEngine:
                 rows.append(host(data_code_tables))
             out = torch.as_tensor(np.stack(rows, axis=1).astype(np.float32),
                                   device=self.device)
-            self._bank_cache = (code_tables, data_code_tables, out)
+            self._bank_cache = (code_tables, data_code_tables, out, None)
             return out
-        bank = self.build_bank(host(code_tables), self._shifts)
+        tables = [np.asarray(host(code_tables), dtype=np.float32)]
         if self.track_pilot:
-            bank = np.concatenate([bank, self.build_bank(
-                host(data_code_tables), np.zeros((1,)))], axis=2)
+            tables.append(np.asarray(host(data_code_tables),
+                                     dtype=np.float32))
+        table = value_table(np.concatenate([np.ravel(a) for a in tables]))
+        t = self.n_taps
+        idx = np.empty((self.n_channels, self.BANK_PHASES + 1,
+                        t + int(self.track_pilot), self.win_len), np.uint8)
+        self.build_bank(tables[0], self._shifts, table, idx[:, :, :t])
+        if self.track_pilot:
+            self.build_bank(tables[1], np.zeros((1,)), table, idx[:, :, t:])
+        bank = np.empty(idx.shape, np.float32)
+        for c in range(idx.shape[0]):
+            np.take(table.view(np.float32), idx[c], out=bank[c], mode="clip")
         out = torch.as_tensor(bank, device=self.device)
-        self._bank_cache = (code_tables, data_code_tables, out)
+        packed = on_device(pack_indices(idx), table, self.device)
+        self._bank_cache = (code_tables, data_code_tables, out, packed)
         return out
 
-    def build_bank(self, code_tables, shifts: np.ndarray) -> np.ndarray:
-        """Host numpy bank, copied from ``FastTrackingEngine._build_bank``:
-        row p holds each tap's code resampled at the nominal code rate
-        with sub-sample start phase p/P."""
+    def packed_bank(self, bank):
+        """The packed form ``(words, values)`` of ``bank`` that K1 and
+        K1-loop read on the card (``bank_corr.pack_indices``): the one
+        :meth:`get_bank` made beside it or :meth:`set_bank` handed in;
+        None for any other bank and for the segmented sum's tables."""
+        cache = self._bank_cache
+        return cache[3] if cache is not None and cache[2] is bank else None
+
+    def set_bank(self, bank, packed) -> None:
+        """Take ``bank`` and its packed form, made by another engine (a
+        shard's piece of that engine's, ``parallel.engines``), as the bank
+        :meth:`packed_bank` knows."""
+        self._bank_cache = (None, None, bank, packed)
+
+    def build_bank(self, code_tables, shifts: np.ndarray,
+                   table: np.ndarray, out: np.ndarray) -> None:
+        """The bank of ``FastTrackingEngine._build_bank`` as uint8 indices
+        into ``table`` (``bank_corr.value_table`` of the code tables),
+        written into ``out`` [C, P+1, T, W]: row p holds each tap's code
+        resampled at the nominal code rate with sub-sample start phase
+        p/P, the columns past the support the level's signed zero (the JAX
+        bank's level times 0), so ``table.view(float32)[out]`` is that
+        bank to the bit."""
         cfg = self.cfg
         tables = np.asarray(code_tables, dtype=np.float32)
-        c, table_len = tables.shape
+        table_len = tables.shape[1]
         p_phases = self.BANK_PHASES
         n_taps = shifts.shape[0]
         t_nom = cfg.code_length_chips / (cfg.chip_rate_cps / cfg.fs)
         code_step_table = (cfg.chip_rate_cps / cfg.fs
                            * cfg.code_samples_per_chip)
         ll = np.arange(self.win_len, dtype=np.float64)
-        bank = np.zeros((c, p_phases + 1, n_taps, self.win_len),
-                        dtype=np.float32)
+        # each table entry's index, and its signed zero's
+        level = np.searchsorted(table, tables.view(np.int32)) \
+            .astype(np.uint8)
+        zero = np.searchsorted(table, (tables * np.float32(0.0))
+                               .view(np.int32)).astype(np.uint8)
         for p in range(p_phases + 1):
             q = p / p_phases
-            support = ll < (round(t_nom) + (1 if q > 0 else 0))
+            tail = np.flatnonzero(ll >= round(t_nom) + (1 if q > 0 else 0))
             for t in range(n_taps):
                 idx = np.floor((ll - q) * code_step_table
                                + shifts[t]).astype(np.int64) % table_len
-                rows = tables[:, idx] * support[None, :].astype(np.float32)
-                bank[:, p, t, :] = rows
-        return bank
+                np.take(level, idx, axis=1, out=out[:, p, t, :],
+                        mode="clip")
+                out[:, p, t, tail] = zero[:, idx[tail]]
 
     # -- one group ------------------------------------------------------------
     def group_inputs(self, s: FastState):
@@ -444,7 +480,8 @@ class FastTrackingEngine:
                                      data_re, data_im)
         corr_re, corr_im = bank_corr(src_re, src_im, base, q["win_start"],
                                      q["ph0"], q["step"], bank, q["j0"],
-                                     q["w"], self.n_eff)
+                                     q["w"], self.n_eff,
+                                     self.packed_bank(bank))
         data_re = data_im = None
         if self.track_pilot:
             # tap T is the data code's prompt on the same rotated windows

@@ -81,27 +81,78 @@ def test_multicorr_kernel_matches_plain(dev):
 
 @pytest.mark.parametrize("src_dtype", ["int8", "float32"])
 def test_bank_corr_kernel_matches_plain(dev, src_dtype):
+    """K1 against its plain version on the int8 ring and on float32
+    planes: 3 channels x 20 periods of 3 taps (a window starting at an odd
+    byte, one ending at the source's last sample, row pair j0 = 15), one
+    channel, 1 and 4 taps, and the E1-B shape (8 channels x K = 1 x 5
+    taps of 16001 samples); the bank's packed form gives the bank back to
+    the bit on the card, and a bank of more than 16 values raises
+    (the cases run in one test: the tier-1 run's count of collected
+    tests sets xdist's schedule of the memory-heavy JAX tests)."""
     from gnss_sdr_tpu_torch.kernels import bank_corr as k1
 
-    rng = np.random.default_rng(3)
-    c, k, p1, nt, w = 3, 20, 17, 3, 2688
     ring = _ring(dev, 400000, 3).to(getattr(torch, src_dtype))
+    for c, k, nt, w, n_eff in ((3, 20, 3, 2688, 2501), (1, 20, 3, 2688, 2501),
+                               (3, 20, 1, 2688, 2501), (3, 20, 4, 4608, 4001),
+                               (8, 1, 5, 16128, 16001)):
+        _bank_corr_case(dev, ring, c, k, nt, w, n_eff, seed=c * 10 + nt)
+    bank = torch.as_tensor(np.arange(17 * 2688, dtype=np.float32)
+                           .reshape(1, 17, 1, 2688), device=dev)
+    with pytest.raises(ValueError, match="distinct values"):
+        k1.pack_bank(bank)
+
+
+#: CBOC levels of a Galileo E1 sub-chip table (alpha +- beta with alpha =
+#: sqrt(10/11), beta = sqrt(1/11)) and the bank's zero support tail
+E1_LEVELS = np.array([np.sqrt(10 / 11) + np.sqrt(1 / 11),
+                      np.sqrt(10 / 11) - np.sqrt(1 / 11)], np.float32)
+
+
+def _code_bank(rng, shape, n_eff, cboc=False):
+    """A bank [C, P+1, T, W] of a code's levels (+-1, or E1's four CBOC
+    levels) with the zero support tail past ``n_eff`` (row 0 one sample
+    shorter, as the bank's first phase row is), zeros of both signs."""
+    levels = np.concatenate([E1_LEVELS, -E1_LEVELS]) if cboc \
+        else np.array([1.0, -1.0], np.float32)
+    bank = levels[rng.integers(0, len(levels), shape)].astype(np.float32)
+    bank[..., n_eff:] *= 0.0
+    bank[:, 0, :, n_eff - 1:] *= 0.0
+    return bank
+
+
+def _bank_corr_case(dev, ring, c, k, nt, w, n_eff, seed, cboc=False):
+    """K1 against its plain version on ``ring`` (int8 or float32 planes)
+    for ``c`` channels x ``k`` periods of ``nt`` taps and ``n_eff``-sample
+    windows: the first window starts at an odd byte, the last ends at the
+    source's last sample, the first period reads rows 15 and 16."""
+    from gnss_sdr_tpu_torch.kernels import bank_corr as k1
+
+    rng = np.random.default_rng(seed)
+    base = 777
+    last = ring.shape[1] - base - n_eff
 
     def t(a):
         return torch.as_tensor(np.asarray(a), device=dev)
 
-    args = (ring[0], ring[1], 777,
-            t(np.sort(rng.integers(0, 300000, (c, k))).astype(np.int32)),
+    starts = np.sort(rng.integers(0, last, (c, k)), axis=None).reshape(c, k)
+    starts[0, 0] |= 1
+    starts[-1, -1] = last
+    j0 = rng.integers(0, 16, (c, k))
+    j0[0, 0] = 15
+    bank = t(_code_bank(rng, (c, 17, nt, w), n_eff, cboc))
+    args = (ring[0], ring[1], base, t(starts.astype(np.int32)),
             t(rng.uniform(0, 30, (c, k)).astype(np.float32)),
-            t(rng.uniform(-0.01, 0.01, c).astype(np.float32)),
-            t(np.sign(rng.standard_normal((c, p1, nt, w))).astype(np.float32)),
-            t(rng.integers(0, 16, (c, k)).astype(np.int32)),
-            t(rng.uniform(0, 1, (c, k)).astype(np.float32)), 2501)
-    got = k1.bank_corr(*args)
+            t(rng.uniform(-0.01, 0.01, c).astype(np.float32)), bank,
+            t(j0.astype(np.int32)),
+            t(rng.uniform(0, 1, (c, k)).astype(np.float32)), n_eff)
+    packed = k1.pack_bank(bank)
+    got = k1.bank_corr(*args, packed=packed)
     want = k1.bank_corr_plain(*args)
     for g, wv in zip(got, want):
         torch.testing.assert_close(g, wv, rtol=0, atol=1e-4 * float(
             torch.max(torch.abs(want[0]))))
+    back = k1.unpack_bank(*packed, nt)
+    assert torch.equal(back.view(torch.int32), bank.view(torch.int32))
 
 
 def _acq_case(dev, use_cfar):
@@ -303,10 +354,11 @@ def _device_guard_case(card):
                               int(rng.integers(0, 4000)), 4000)
     codes = t(np.stack([gps_l1ca_code(p) for p in PRNS[:c]])
               .astype(np.float32))
+    packed = k1.pack_bank(args[6])
     reset_launches()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        got = k1.bank_corr(*args)
+        got = k1.bank_corr(*args, packed=packed)
         sb, out = eng.superblock_ring_i8(s, ring, 0, 1, codes)
         torch.cuda.synchronize(card)
     assert LAUNCHES["bank_corr"] == 1 and LAUNCHES["scan_loop"] == 1
@@ -485,28 +537,12 @@ def test_conditioner_wrappers_count_launches(dev):
 @pytest.mark.parametrize("n_taps", [4, 6])
 def test_bank_corr_kernel_with_data_tap_matches_plain(dev, n_taps):
     """K1 with the data-code bank appended as one more tap (3 + 1, the
-    Galileo E1 pilot's 5 + 1) over E1-length windows."""
-    from gnss_sdr_tpu_torch.kernels import bank_corr as k1
-
-    rng = np.random.default_rng(n_taps)
-    c, k, p1, w, n_eff = 2, 25, 17, 16256, 16001
+    Galileo E1 pilot's 5 + 1) over E1-length windows of a bank of E1's
+    CBOC levels (the first window at an odd byte, the last at the ring's
+    end, row pair j0 = 15)."""
     ring = _ring(dev, 500000, n_taps)
-
-    def t(a):
-        return torch.as_tensor(np.asarray(a), device=dev)
-
-    args = (ring[0], ring[1], 321,
-            t(np.sort(rng.integers(0, 450000, (c, k))).astype(np.int32)),
-            t(rng.uniform(0, 30, (c, k)).astype(np.float32)),
-            t(rng.uniform(-0.01, 0.01, c).astype(np.float32)),
-            t(rng.standard_normal((c, p1, n_taps, w)).astype(np.float32)),
-            t(rng.integers(0, 16, (c, k)).astype(np.int32)),
-            t(rng.uniform(0, 1, (c, k)).astype(np.float32)), n_eff)
-    got = k1.bank_corr(*args)
-    want = k1.bank_corr_plain(*args)
-    for g, wv in zip(got, want):
-        torch.testing.assert_close(g, wv, rtol=0, atol=1e-4 * float(
-            torch.max(torch.abs(want[0]))))
+    _bank_corr_case(dev, ring, 2, 25, n_taps, 16256, 16001, seed=n_taps,
+                    cboc=True)
 
 
 @pytest.mark.parametrize("n_taps", [1, 5])
@@ -922,17 +958,18 @@ def _fast_case(dev, case, correlator="bank"):
     from gnss_sdr_tpu_torch.tracking.fast_engine import FastTrackingEngine
 
     e1 = case.startswith("e1")
-    pilot = case == "e1-pilot"
+    shape, _, e1_loop = case.partition(":")
+    pilot = shape == "e1-pilot"
     eng, ring, codes, dcodes, s, chans = _pulled_in_scan(
         dev, e1, pilot, n={"fllpll-c5": 5, "fllpll-c13": 13}.get(case, 8))
     cfg = dataclasses.replace(
         eng.cfg, extend_correlation_symbols={"e1-pilot": 25,
-                                             "e1-k1": 1}.get(case, 20),
+                                             "e1-k1": 1}.get(shape, 20),
         pll_bw_narrow_hz=2.0 if pilot else 5.0)
-    loop = case if case in ("kf", "gaussian") else "fllpll"
+    loop = e1_loop or (case if case in ("kf", "gaussian") else "fllpll")
     fast = FastTrackingEngine(cfg, eng.n_channels, {"e1-pilot": 1,
                                                     "e1-k1": 25}.get(
-        case, 5), correlator=correlator, loop=loop,
+        shape, 5), correlator=correlator, loop=loop,
         sec_max_len=25 if pilot else 1, device=dev)
     fs = fast.from_track_state(s)
     base = 8 * 80000
@@ -947,8 +984,9 @@ def test_fast_loop_matches_stepwise(dev):
     per-group path on the card (K1, K6 and PyTorch): the first group's
     prompts to the bit (K1's own body), every record, the group prompts
     and the end state within the JAX suite's tolerances; one launch per
-    call and no K1 or K6 launch, for the three loops at L1 (K = 20), the
-    E1 pilot with the data tap and CS25 (K = 25) and E1-B alone (K = 1);
+    call and no K1 or K6 launch, for the three loops at L1 (K = 20) and
+    at the E1 pilot with the data tap and CS25 (K = 25), and E1-B alone
+    (K = 1);
     process_block's float32 planes likewise; at L1 with a channel
     inactive from the start and one that loses lock inside the
     superblock, and with 5 and 13 channels (clusters of 10 blocks: C
@@ -956,7 +994,8 @@ def test_fast_loop_matches_stepwise(dev):
     (the cases run in one test: the tier-1 run's count of collected
     tests sets xdist's schedule of the memory-heavy JAX tests)."""
     for case in ("fllpll", "kf", "gaussian", "e1-pilot", "e1-k1",
-                 "fllpll-edge", "fllpll-c5", "fllpll-c13"):
+                 "fllpll-edge", "fllpll-c5", "fllpll-c13", "e1-pilot:kf",
+                 "e1-pilot:gaussian"):
         _fast_loop_case(dev, case)
 
 
@@ -968,7 +1007,7 @@ def _fast_loop_case(dev, case):
         s, codes = _edge_channels(s, codes, (fast.cfg.max_code_lock_fail,
                                              fast.cfg.max_carrier_lock_fail))
     bank = fast.get_bank(codes, dcodes)
-    nb = 2 if case == "e1-pilot" else 4
+    nb = 2 if case.startswith("e1-pilot") else 4
     sa, pa, ra, ia = fast._blocks_stepwise(s, ring[0], ring[1], base,
                                            fast.block_samples, nb, bank)
     if case == "fllpll-edge":   # the two channels are what the case holds

@@ -43,6 +43,7 @@ from gnss_sdr_tpu_torch import convert
 from gnss_sdr_tpu_torch.codes.galileo_e1 import (E1C_SECONDARY,
                                                  galileo_e1_sampled,
                                                  galileo_e1_subchips)
+from gnss_sdr_tpu_torch.kernels.bank_corr import unpack_bank
 from gnss_sdr_tpu_torch.tracking.channels import TrackingChannels
 from gnss_sdr_tpu_torch.tracking.engine import TrackingConfig
 from gnss_sdr_tpu_torch.tracking.fast_engine import FastTrackingEngine
@@ -484,9 +485,13 @@ def test_convert_round_trips():
                              jf._get_data_bank(jnp.asarray(dc)), "cpu")
     tf = FastTrackingEngine(TrackingConfig(**kw), 2, 1, sec_max_len=25,
                             device="cpu")
-    assert torch.equal(bank, tf.get_bank(torch.from_numpy(pc),
-                                         torch.from_numpy(dc)))
+    mine = tf.get_bank(torch.from_numpy(pc), torch.from_numpy(dc))
+    assert torch.equal(bank, mine)
     assert bank.shape[2] == 6
+    # the packed form K1 and K1-loop read on the card, made with the bank,
+    # gives the pilot + data bank back to the bit
+    back = unpack_bank(*tf.packed_bank(mine), 6)
+    assert torch.equal(back.view(torch.int32), bank.view(torch.int32))
 
 
 # ---- factory --------------------------------------------------------------

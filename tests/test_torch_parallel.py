@@ -246,6 +246,26 @@ def test_sharded_fast_superblock_matches_unsharded_and_jax():
                                atol=1e-3 * np.abs(pj[..., 2 * k:3 * k]).max())
     assert np.max(np.abs(pj[..., 5 * k] - pt[..., 5 * k])) < 1.0
     assert np.max(np.abs(pj[..., 5 * k + 1] - pt[..., 5 * k + 1])) < 1.0
+    # the bank is placed once, and each shard engine knows its piece's
+    # packed form (its words the same piece of the whole bank's)
+    from gnss_sdr_tpu_torch.codes import gps_l1ca_code
+    from gnss_sdr_tpu_torch.kernels.bank_corr import unpack_bank
+    from gnss_sdr_tpu_torch.tracking.fast_engine import FastTrackingEngine
+    eng = FastTrackingEngine(TrackingConfig(fs=1.0e5,
+                                            extend_correlation_symbols=4),
+                             16, 2, device="cpu")
+    bank = eng.get_bank(torch.as_tensor(np.stack(
+        [np.asarray(gps_l1ca_code(p + 1), np.float32) for p in range(16)])))
+    sharded = ShardedEngine(eng, _mesh())
+    pieces = sharded.shard_bank(bank)
+    assert sharded.shard_bank(bank) is pieces
+    words = eng.packed_bank(bank)[0]
+    for g, (e, piece) in enumerate(zip(sharded.engines, pieces)):
+        w, v = e.packed_bank(piece)
+        assert torch.equal(w, words[2 * g:2 * g + 2])
+        assert torch.equal(unpack_bank(w, v, bank.shape[2])
+                           .view(torch.int32),
+                           piece.view(torch.int32))
 
 
 def test_dryrun_multichip_and_entry():

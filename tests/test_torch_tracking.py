@@ -23,6 +23,7 @@ from gnss_sdr_tpu.tracking import TrackingConfig as JConfig
 from gnss_sdr_tpu.tracking.channels import TrackingChannels as JChannels
 from gnss_sdr_tpu.tracking.fast_engine import FastTrackingEngine as JFast
 from gnss_sdr_tpu_torch import convert
+from gnss_sdr_tpu_torch.kernels.bank_corr import pack_bank, unpack_bank
 from gnss_sdr_tpu_torch.tracking.channels import TrackingChannels
 from gnss_sdr_tpu_torch.tracking.engine import TrackingConfig
 from gnss_sdr_tpu_torch.tracking.fast_engine import FastTrackingEngine
@@ -130,9 +131,17 @@ def test_fast_engine_parity_from_track_state(true_doppler):
         np.testing.assert_array_equal(v, convert.state_numpy(ts)[name], name)
     js = jax.tree_util.tree_map(lambda a: jnp.array(np.asarray(a)), js)
     codes = np.asarray(gps_l1ca_code(13), np.float32)[None, :]
+    bank = tf.get_bank(torch.from_numpy(codes))
     np.testing.assert_array_equal(
-        tf.get_bank(torch.from_numpy(codes)).numpy(),
-        np.asarray(jf._get_bank(jnp.asarray(codes))))
+        bank.numpy(), np.asarray(jf._get_bank(jnp.asarray(codes))))
+    # the packed form K1 and K1-loop read on the card, made with the bank,
+    # gives the bank back to the bit
+    words, values = tf.packed_bank(bank)
+    back = unpack_bank(words, values, bank.shape[2])
+    assert torch.equal(back.view(torch.int32), bank.view(torch.int32))
+    # pack_bank (banks made elsewhere, by their bits) gives the same form
+    other = pack_bank(bank)
+    assert torch.equal(other[0], words) and torch.equal(other[1], values)
     pos = 12 * block
     k = 20
     n_blocks = (len(x) - pos - jf.overlap) // jf.block_samples

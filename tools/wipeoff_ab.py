@@ -59,15 +59,17 @@ CHECKED = (("acq_wipeoff/odd_n", 1, 4001, 40, -5000.0, 250.0, 4e6),
            ("fold_wipeoff/S1", 1, 4000, 40, -5000.0, 250.0, 4e6))
 
 
-def ptxas_lines(log_path: str) -> dict:
-    """{kernel entry: ptxas's resource lines} for the wipe-off kernels in
-    the ``nvcc -Xptxas -v`` log at ``log_path``."""
+def ptxas_lines(log_path: str, keys=("wipeoff",)) -> dict:
+    """{kernel entry: ptxas's resource lines} for the kernels whose entry
+    names hold one of ``keys`` (the wipe-off kernels) in the ``nvcc
+    -Xptxas -v`` log at ``log_path``."""
     out, entry = {}, None
     with open(log_path) as fh:
         log = fh.read()
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            entry = line.split("'")[1] if "wipeoff" in line else None
+            entry = line.split("'")[1] \
+                if any(k in line for k in keys) else None
         elif entry and ("Used" in line or "stack frame" in line):
             out[entry] = (out.get(entry, "") + " "
                           + line.split(":", 1)[-1].strip()).strip()
